@@ -1,0 +1,77 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel library exposes a plain C interface (loaded with ctypes):
+// pointers and the CUDA stream arrive as void*, each entry point returns
+// cudaGetLastError() after its launch, and nothing here allocates device
+// memory or synchronises. Element types are float32 (code 0) and bfloat16
+// (code 1); arithmetic always runs in float32 registers.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace du {
+
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's cast
+}
+
+// V consecutive elements <-> V floats. V * sizeof(T) == 16 takes one 16-byte
+// access (the caller guarantees the alignment); V == 1 is the scalar path.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float* out) {
+  if constexpr (V * sizeof(T) == 16) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = to_f(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = to_f(p[i]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float* in) {
+  if constexpr (V * sizeof(T) == 16) {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < V; ++i) e[i] = from_f<T>(in[i]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = from_f<T>(in[i]);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Blocks of a grid-stride elementwise launch: enough to fill 132 SMs many
+// times over without an oversized grid.
+inline unsigned int stream_blocks(long long work, int threads) {
+  long long b = (work + threads - 1) / threads;
+  if (b > 132LL * 32) b = 132LL * 32;
+  return static_cast<unsigned int>(b < 1 ? 1 : b);
+}
+
+}  // namespace du
+
+extern "C" const char* du_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,284 @@
+"""ADM (guided-diffusion) UNet in PyTorch, NHWC activations.
+
+JAX counterpart: ``diffusion_uncertainty_tpu/models/adm_unet.py`` (``ADMUNet``,
+``ResBlock``, ``_SplitInputConv``, ``_Downsample``, ``_Upsample``). The module
+tree and parameter names are the reference's torch ``UNetModel``
+(``input_blocks.N.0.in_layers.0.weight``, ...), so a reference state dict
+loads with ``load_state_dict``; ``convert.adm_state_dict_from_flax`` gives the
+same dict from the JAX package's parameters. The forward follows the JAX
+model: fused upsample+conv in the up ResBlocks, concat-free split-skip
+decoder blocks, float32 output.
+
+Not ported yet: the activation-noise and gradient taps (used by the
+``uncertainty`` and ``flip_grad`` estimators), dropout and its rate (the
+``mc_dropout`` estimator; this path samples in eval mode), and
+``ADMClassifier`` (classifier guidance).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.fused_upsample import conv2d_nhwc, nearest_upsample_2x
+from ..ops.groupnorm import group_norm_silu
+from .layers import AttentionBlock, Conv2d, Conv3x3, GroupNorm32, avg_pool_2x, nearest_upsample, timestep_embedding
+
+__all__ = ["ADMUNetConfig", "ADMUNet", "ResBlock"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ADMUNetConfig:
+    image_size: int = 64
+    in_channels: int = 3
+    model_channels: int = 192
+    out_channels: int = 6
+    num_res_blocks: int = 3
+    attention_resolutions: Tuple[int, ...] = (2, 4, 8)  # downsample factors
+    channel_mult: Tuple[int, ...] = (1, 2, 3, 4)
+    num_classes: Optional[int] = 1000
+    num_heads: int = 4
+    num_head_channels: int = -1
+    num_heads_upsample: int = -1
+    use_scale_shift_norm: bool = True
+    resblock_updown: bool = True
+    conv_resample: bool = True
+    # the reference's qkv weight order: legacy (per head) or qkv-major
+    use_new_attention_order: bool = False
+
+    @staticmethod
+    def imagenet128() -> "ADMUNetConfig":
+        """guided-diffusion ImageNet-128 (421M parameters)."""
+        return ADMUNetConfig(
+            image_size=128,
+            model_channels=256,
+            num_res_blocks=2,
+            attention_resolutions=(4, 8, 16),
+            channel_mult=(1, 1, 2, 3, 4),
+            num_heads=4,
+            num_head_channels=-1,
+            num_heads_upsample=4,
+        )
+
+    @staticmethod
+    def imagenet64() -> "ADMUNetConfig":
+        """guided-diffusion ImageNet-64."""
+        return ADMUNetConfig(
+            image_size=64,
+            model_channels=192,
+            num_res_blocks=3,
+            attention_resolutions=(2, 4, 8),
+            channel_mult=(1, 2, 3, 4),
+            num_heads=4,
+            num_head_channels=64,
+            num_heads_upsample=4,
+            use_new_attention_order=True,
+        )
+
+    @staticmethod
+    def tiny(num_classes: Optional[int] = 10) -> "ADMUNetConfig":
+        """Small test configuration (as the JAX package's)."""
+        return ADMUNetConfig(
+            image_size=16,
+            model_channels=32,
+            out_channels=3,
+            num_res_blocks=1,
+            attention_resolutions=(2,),
+            channel_mult=(1, 2),
+            num_classes=num_classes,
+            num_heads=2,
+        )
+
+
+def _split_input_conv(conv: Conv2d, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """conv over the channel concat of a and b without forming the concat:
+    conv(a, W[:, :C1]) + conv(b, W[:, C1:]) + bias."""
+    c1 = a.shape[-1]
+    w = conv.weight
+    pad = conv.padding[0]
+    ya = conv2d_nhwc(a, w[:, :c1], None, padding=pad)
+    return ya.add_(conv2d_nhwc(b, w[:, c1:], conv.bias, padding=pad))
+
+
+class ResBlock(nn.Module):
+    """ADM residual block with timestep scale-shift conditioning and optional
+    in-block up/downsampling. Decoder blocks pass their skip tensor via
+    ``skip=``: when GroupNorm's group size divides the first part's width, the
+    block runs concat-free (split GN + split convs, exact up to summation
+    order); otherwise it concatenates."""
+
+    def __init__(self, c_in: int, c_out: int, emb_dim: int, use_scale_shift_norm: bool = True,
+                 up: bool = False, down: bool = False):
+        super().__init__()
+        self.c_in, self.c_out = c_in, c_out
+        self.up, self.down = up, down
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.in_layers = nn.ModuleList([GroupNorm32(c_in), nn.SiLU(), Conv3x3(c_in, c_out, up2=up)])
+        self.emb_layers = nn.ModuleList([nn.SiLU(), nn.Linear(emb_dim, 2 * c_out if use_scale_shift_norm else c_out)])
+        self.out_layers = nn.ModuleList([GroupNorm32(c_out), nn.SiLU(), nn.Dropout(), Conv3x3(c_out, c_out)])
+        self.skip_connection = Conv2d(c_in, c_out, 1) if c_in != c_out else None
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        gn_in, conv_in = self.in_layers[0], self.in_layers[2]
+        split = None
+        if skip is not None:
+            assert not (self.up or self.down)
+            c1, c_tot = x.shape[-1], self.c_in
+            gs = c_tot // min(32, c_tot)
+            if c1 % gs == 0 and c_tot % min(32, c_tot) == 0 and c_tot != self.c_out:
+                split = (c1, gs)
+            else:
+                x = torch.cat([x, skip], dim=-1)
+                skip = None
+
+        if split is None:
+            h = group_norm_silu(x, gn_in.weight, gn_in.bias)
+            if self.up:
+                # fused upsample+conv; the 1x1 skip commutes with nearest
+                # upsampling, so it runs at the low resolution
+                h = conv_in(h)
+                if self.skip_connection is not None:
+                    x = self.skip_connection(x)
+                x = nearest_upsample_2x(x)
+            else:
+                if self.down:
+                    h = avg_pool_2x(h)
+                    x = avg_pool_2x(x)
+                h = conv_in(h)
+        else:
+            c1, gs = split
+            h_a = group_norm_silu(x, gn_in.weight[:c1], gn_in.bias[:c1], num_groups=c1 // gs)
+            h_b = group_norm_silu(skip, gn_in.weight[c1:], gn_in.bias[c1:], num_groups=(self.c_in - c1) // gs)
+            h = _split_input_conv(conv_in, h_a, h_b)
+
+        emb_out = self.emb_layers[1](F.silu(emb))
+        gn_out, conv_out = self.out_layers[0], self.out_layers[3]
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=-1)
+            h = group_norm_silu(h, gn_out.weight, gn_out.bias, scale=scale, shift=shift)
+        else:
+            h = group_norm_silu(h + emb_out[:, None, None, :].to(h.dtype), gn_out.weight, gn_out.bias)
+
+        if split is not None:
+            x = _split_input_conv(self.skip_connection, x, skip)
+        elif self.skip_connection is not None and not self.up:
+            x = self.skip_connection(x)
+        return conv_out(h, res=x)
+
+
+class _Downsample(nn.Module):
+    def __init__(self, channels: int, use_conv: bool):
+        super().__init__()
+        self.op = Conv2d(channels, channels, 3, stride=2, padding=1) if use_conv else None
+
+    def forward(self, x):
+        return self.op(x) if self.op is not None else avg_pool_2x(x)
+
+
+class _Upsample(nn.Module):
+    def __init__(self, channels: int, use_conv: bool):
+        super().__init__()
+        self.conv = Conv3x3(channels, channels, up2=True) if use_conv else None
+
+    def forward(self, x):
+        return self.conv(x) if self.conv is not None else nearest_upsample(x)
+
+
+class ADMUNet(nn.Module):
+    """Class-conditional epsilon(+learned variance) UNet.
+
+    ``forward(x [B,H,W,C], t (int | [B]), y [B'] | None)`` -> float32
+    [B, H, W, out_channels]. When ensemble members are folded into the batch
+    (B = k·B'), the labels are tiled k times, member-major.
+    """
+
+    def __init__(self, cfg: ADMUNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        mc = cfg.model_channels
+        td = 4 * mc
+        self.time_embed = nn.Sequential(nn.Linear(mc, td), nn.SiLU(), nn.Linear(td, td))
+        self.label_emb = nn.Embedding(cfg.num_classes, td) if cfg.num_classes is not None else None
+        legacy = not cfg.use_new_attention_order
+
+        def attn(ch: int, upsample: bool) -> AttentionBlock:
+            if cfg.num_head_channels > 0:
+                return AttentionBlock(ch, num_head_channels=cfg.num_head_channels, legacy_order=legacy)
+            n = cfg.num_heads_upsample if (upsample and cfg.num_heads_upsample > 0) else cfg.num_heads
+            return AttentionBlock(ch, num_heads=n, legacy_order=legacy)
+
+        ss = cfg.use_scale_shift_norm
+        self.input_blocks = nn.ModuleList([nn.ModuleList([Conv3x3(cfg.in_channels, mc)])])
+        input_chs = [mc]
+        ch, ds = mc, 1
+        for level, mult in enumerate(cfg.channel_mult):
+            for _ in range(cfg.num_res_blocks):
+                layers = [ResBlock(ch, mult * mc, td, ss)]
+                ch = mult * mc
+                if ds in cfg.attention_resolutions:
+                    layers.append(attn(ch, False))
+                self.input_blocks.append(nn.ModuleList(layers))
+                input_chs.append(ch)
+            if level != len(cfg.channel_mult) - 1:
+                down = ResBlock(ch, ch, td, ss, down=True) if cfg.resblock_updown else _Downsample(ch, cfg.conv_resample)
+                self.input_blocks.append(nn.ModuleList([down]))
+                input_chs.append(ch)
+                ds *= 2
+
+        self.middle_block = nn.ModuleList([ResBlock(ch, ch, td, ss), attn(ch, False), ResBlock(ch, ch, td, ss)])
+
+        self.output_blocks = nn.ModuleList()
+        for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+            for i in range(cfg.num_res_blocks + 1):
+                layers = [ResBlock(ch + input_chs.pop(), mult * mc, td, ss)]
+                ch = mult * mc
+                if ds in cfg.attention_resolutions:
+                    layers.append(attn(ch, True))
+                if level and i == cfg.num_res_blocks:
+                    layers.append(ResBlock(ch, ch, td, ss, up=True) if cfg.resblock_updown else _Upsample(ch, cfg.conv_resample))
+                    ds //= 2
+                self.output_blocks.append(nn.ModuleList(layers))
+
+        self.out = nn.ModuleList([GroupNorm32(ch), nn.SiLU(), Conv3x3(ch, cfg.out_channels)])
+
+    def _block(self, layers, h, emb, skip=None):
+        for layer in layers:
+            if isinstance(layer, ResBlock):
+                h = layer(h, emb, skip)
+                skip = None
+            else:
+                h = layer(h)
+        return h
+
+    def forward(self, x: torch.Tensor, t, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        dtype = self.time_embed[0].weight.dtype
+        emb = timestep_embedding(t, cfg.model_channels, cos_first=True, device=x.device)
+        emb = self.time_embed[0](emb.to(dtype))
+        emb = self.time_embed[2](F.silu(emb))
+        if self.label_emb is not None:
+            if y is None:
+                raise ValueError("class-conditional model requires y")
+            if y.shape[0] != x.shape[0]:
+                if x.shape[0] % y.shape[0]:
+                    raise ValueError(f"batch {x.shape[0]} is not a multiple of the {y.shape[0]} labels")
+                y = y.repeat(x.shape[0] // y.shape[0])  # folded ensemble members
+            emb = emb + self.label_emb(y)
+        if emb.shape[0] == 1 and x.shape[0] > 1:
+            emb = emb.expand(x.shape[0], -1)
+
+        h = self.input_blocks[0][0](x.to(dtype))
+        hs = [h]
+        for layers in self.input_blocks[1:]:
+            h = self._block(layers, h, emb)
+            hs.append(h)
+        h = self._block(self.middle_block, h, emb)
+        for layers in self.output_blocks:
+            h = self._block(layers, h, emb, skip=hs.pop())
+        gn = self.out[0]
+        h = group_norm_silu(h, gn.weight, gn.bias)
+        return self.out[2](h).float()

@@ -1,0 +1,58 @@
+"""Fused GroupNorm(+scale-shift)(+SiLU).
+
+JAX counterpart: ``diffusion_uncertainty_tpu/ops/groupnorm.py``
+(``group_norm_silu``). For CPU tensors the op runs its plain version,
+``_reference_impl`` (two-pass float32 statistics); for CUDA tensors it runs
+the Hopper kernel pair ``kernels.groupnorm.gn_stats`` + ``gn_apply`` at every
+site, whatever the batch or channel count.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels import groupnorm as _k
+
+__all__ = ["group_norm_silu"]
+
+
+def _reference_impl(x, gamma, beta, num_groups, eps, scale, shift, apply_silu):
+    b, h, w, c = x.shape
+    gs = c // num_groups
+    xf = x.float().reshape(b, h * w, num_groups, gs)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = xf.var(dim=(1, 3), keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y.reshape(b, h, w, c) * gamma.float() + beta.float()
+    if scale is not None:
+        y = y * (1.0 + scale.float().reshape(b, 1, 1, c)) + shift.float().reshape(b, 1, 1, c)
+    if apply_silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+def group_norm_silu(
+    x: torch.Tensor,  # [B, H, W, C]
+    gamma: torch.Tensor,  # [C]
+    beta: torch.Tensor,  # [C]
+    num_groups: int = 32,
+    eps: float = 1e-5,
+    scale: Optional[torch.Tensor] = None,  # [B, C] or [B, 1, 1, C]
+    shift: Optional[torch.Tensor] = None,
+    apply_silu: bool = True,
+) -> torch.Tensor:
+    """GroupNorm over min(num_groups, C) groups with affine, optional
+    (1+scale)·y+shift and optional SiLU; output in x's type."""
+    c = x.shape[-1]
+    num_groups = min(num_groups, c)
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift must be passed together")
+    if c % num_groups:
+        raise ValueError(f"C={c} is not divisible by num_groups={num_groups}")
+    if x.device.type == "cpu":
+        return _reference_impl(x, gamma, beta, num_groups, eps, scale, shift, apply_silu)
+    x = x.contiguous()
+    a, b = _k.gn_stats(x, gamma, beta, num_groups, eps, scale, shift)
+    return _k.gn_apply(x, a, b, apply_silu)
