@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and hold its kernels to account.
 
-    python3 chip_smoke.py [--details PATH]   # one card, about a minute
+    python3 chip_smoke.py [--details PATH]   # one card, a few minutes
 
 Phases (a failure in any of them ends the run with a non-zero exit):
 
@@ -9,27 +9,52 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    kernels/csrc`` with nvcc (one process per source, in parallel); print the
    seconds and the card's name and power limit.
 2. Hold every kernel against its plain PyTorch version on the card, at every
-   shape the ADM-128 forward gives it (recorded from the phase-3 forward), at
-   batch 2 and 8, in bfloat16 (and float32 for GroupNorm and attention).
-   Tolerances: interleave bit-exact; avg-pool within 1 bf16 ulp; GroupNorm
-   |kernel - plain| <= 2e-2 + 2^-7·|plain| in bf16 (the second term is one
-   output rounding step where |y| > 2) and <= 1e-4 in f32; attention 2e-2 in
-   bf16 and 1e-4 in f32. Median device times (CUDA events, after warm-up) of
-   kernel and plain version, bfloat16.
+   shape the full-width models give it, recorded from the forwards of phases
+   3 and 5: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the CFG
+   batch) and the SD VAE decoder at batch 1 (64x64 latent), in bfloat16 and
+   float32. Tolerances: interleave bit-exact; avg-pool within 1 bf16 ulp;
+   GroupNorm |kernel - plain| <= 2e-2 + 2^-7·|plain| in bf16 (the second term
+   is one output rounding step where |y| > 2) and <= 1e-4 in f32; attention,
+   scaled to the output (whose size falls as 1/sqrt(S_kv) for random inputs),
+   max |kernel - plain| <= 2^-6·max|plain| (2 to 4 bf16 ulps of the largest
+   output) and relative L2 <= 5e-3 in bf16, max |kernel - plain| <=
+   1e-4·max|plain| in f32. bfloat16 shapes are timed (CUDA events, median
+   after warm-up): the kernel, its plain version, the one PyTorch call that
+   computes the same function (``F.scaled_dot_product_attention``,
+   ``F.avg_pool2d``, a stack/permute/reshape copy for the interleave, and
+   ``F.group_norm`` (+``F.silu``) for the GN pair: that one call covers both
+   ``gn_stats`` and ``gn_apply``, so it stands on both kernels' lines and the
+   pair is timed back to back against it), and the bound: the larger of bytes
+   moved (each input read once, each output written once) / 3.35 TB/s and
+   operations / 989 TFLOP/s (dense bf16).
 3. The full-width ImageNet-128 ADM forward (421M parameters, random bf16
-   weights N(0, 0.02), batch 2) on the card through the kernels, against the
-   same weights run in float32 on the CPU at batch 1 (the kernel wrappers take
-   their plain versions for CPU tensors): relative L2 error of image 0 <= 2e-2.
-   Every kernel's launch counter must rise.
-4. The main path: 50 DDIM steps, uncertainty window [40, 50) with
+   weights N(0, 0.02), batch 2) on the card against the same weights in
+   float32 on the CPU at batch 1: relative L2 error of image 0 <= 2e-2.
+4. ADM main path: 50 DDIM steps, uncertainty window [40, 50) with
    uncertainty_zigzag_centered (M=5, num_zigzag=3, members one after another),
-   bf16, batch 8. Counters are set to 0 just before and read just after; each
-   kernel must have launched. The sample must be finite and the uncertainty
-   map of shape (10, 8, 128, 128, 3) with a positive mean. Prints images/sec
-   with the card's name and power limit (information, not a claim).
+   bf16, batch 8; sample finite, maps (10, 8, 128, 128, 3) with positive mean.
+5. The full-width SD 1.5 UNet forward (859.5M parameters, random bf16 weights
+   N(0, 0.02) with norm scales 1, t=500, pseudo-text context [2, 77, 768],
+   inputs rounded to bf16, batch 2) against float32 on the CPU at batch 1,
+   and the full-width VAE decoder (float32, as the CLI runs it; 32x32
+   latent) the same way: rel L2 <= 2e-2 each. The same bf16 UNet forward
+   through the plain versions on the card is compared too (information: the
+   share of the error that is bf16 rounding, not the kernels). One backward
+   through the UNet at batch 1 (grad of eps.square().mean() with respect to
+   the input) on the card must be finite and match the same grad through the
+   plain versions on the card within 5e-2 rel L2.
+6. SD 1.5 main path, the CLI defaults: ``build_sd_stack`` +
+   ``TextToImageUncertaintyPipeline``, 512x512, 20 DDIM steps, CFG 7.5,
+   percentile guidance on steps [0, 20) at 0.95 with M=5, gradient branch (lr
+   0.99), one prompt; then once more with the posterior branch. Images
+   [1, 512, 512, 3] finite, uncertainty [1, 20, 64, 64, 4] with positive mean.
 
-The last two lines are the kernels JSON and the device JSON. ``--details``
-writes every check, time and the ptxas report as JSON to PATH.
+Every forward of phases 3 and 5 must launch each kernel of its model; each
+main path (phase 4, and each run of phase 6) sets the launch counters to 0
+just before and reads them just after, and fails if a kernel of its path
+never launched. The last two lines are the kernels JSON (``launches``: the
+sum over the main-path runs) and the device JSON. ``--details`` writes every
+check, time and the ptxas report as JSON to PATH.
 """
 
 from __future__ import annotations
@@ -43,6 +68,24 @@ import subprocess
 import sys
 import time
 
+SEED = 0
+ADM_BATCH = 8  # images of the ADM main-path run (phase 4)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
+# the batch each model's shapes are checked at; the first is the main path's
+CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,)}
+SRC = "diffusion_uncertainty_torch/kernels/csrc/"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "gn_stats": (SRC + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:454"),
+    "gn_apply": (SRC + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:65"),
+    "attention": (SRC + "attention.cu", "diffusion_uncertainty_tpu/ops/flash_attention.py:87"),
+    "attention_long": (SRC + "attention.cu", "diffusion_uncertainty_tpu/ops/flash_attention.py:134"),
+    "avg_pool_2x2": (SRC + "avgpool.cu", "diffusion_uncertainty_tpu/ops/avgpool.py:30"),
+    "interleave_2x": (SRC + "interleave.cu", "diffusion_uncertainty_tpu/ops/fused_upsample.py:110"),
+}
+ADM_PATH = ("gn_stats", "gn_apply", "attention", "avg_pool_2x2", "interleave_2x")
+SD_PATH = ("gn_stats", "gn_apply", "attention", "attention_long", "interleave_2x")
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -55,34 +98,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60,
     )
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 and r.stdout.strip() else "nvidia-smi: not available"
-
-
-class Recorder:
-    """Stands in for a kernel wrapper during the recording forward: logs the
-    call's arguments and forwards it. ``launches`` reads and writes the
-    wrapper's own counter, which the wrapper increments by its module name."""
-
-    def __init__(self, mod, name, log):
-        self.mod, self.name, self.fn, self.log = mod, name, getattr(mod, name), log
-
-    @property
-    def launches(self):
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, v):
-        self.fn.launches = v
-
-    def __call__(self, *args, **kwargs):
-        self.log.append((self.name, args, kwargs))
-        return self.fn(*args, **kwargs)
-
-    def __enter__(self):
-        setattr(self.mod, self.name, self)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.mod, self.name, self.fn)
 
 
 def device_ms(fn, reps: int = 5, inner: int = 10) -> float:
@@ -103,6 +118,11 @@ def device_ms(fn, reps: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, float]:
+    """(bytes time, operations time) in ms on the published H100 peaks."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+
+
 def bf16_ulp(t):
     import torch
 
@@ -110,8 +130,88 @@ def bf16_ulp(t):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-SEED = 0
-BATCH = 8  # images of the main-path run (phase 4)
+def rel_l2(got, ref) -> float:
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return float((got - ref).norm() / ref.norm())
+
+
+class Recorder:
+    """Stands in for every kernel wrapper during a recording forward: notes
+    each call's shape signature (tensors are not kept) and forwards it."""
+
+    def __init__(self, mods):
+        self.mods = mods  # {wrapper name: kernel module}
+        self.sigs: list = []
+
+    def _wrap(self, name, fn):
+        def call(*args):
+            self.sigs.append((name, signature(name, args)))
+            return fn(*args)
+
+        return call
+
+    def __enter__(self):
+        self.saved = {name: getattr(mod, name) for name, mod in self.mods.items()}
+        for name, mod in self.mods.items():
+            setattr(mod, name, self._wrap(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self.mods.items():
+            setattr(mod, name, self.saved[name])
+
+
+class PlainKernels:
+    """Every kernel wrapper replaced by its plain PyTorch version, so a run
+    on the card goes through no kernel (the reference of the backward check)."""
+
+    def __init__(self, mods, plains):
+        self.mods, self.plains = mods, plains
+
+    def __enter__(self):
+        self.saved = {name: getattr(mod, name) for name, mod in self.mods.items()}
+        for name, mod in self.mods.items():
+            setattr(mod, name, self.plains[name])
+
+    def __exit__(self, *exc):
+        for name, mod in self.mods.items():
+            setattr(mod, name, self.saved[name])
+
+
+def signature(name, args):
+    """What phase 2 needs to rebuild a call's inputs (per image)."""
+    if name == "gn_stats":
+        x, groups, eps = args[0], args[3], args[4]
+        scale = args[5] if len(args) > 5 else None
+        return (x.shape[1], x.shape[2], x.shape[3], groups, float(eps), scale is not None)
+    if name == "gn_apply":
+        return bool(args[3]) if len(args) > 3 else True
+    if name == "attention":
+        q, k = args[0], args[1]
+        s, h, d = q.shape[1:]
+        layout = "separate"
+        if q.stride(1) == 3 * h * d:  # a view into one qkv projection
+            layout = "legacy" if q.stride(2) == 3 * d else "qkv"
+        kv_len = args[3] if len(args) > 3 else None
+        return (s, k.shape[1], h, d, layout, kv_len)
+    if name == "avg_pool_2x2":
+        return tuple(args[0].shape[1:])
+    return tuple(args[0].shape[1:]) + (args[0] is args[1],)
+
+
+def shape_sets(calls):
+    """Recorded calls -> {kernel family: sorted distinct signatures}; a GN
+    signature pairs a gn_stats call with the gn_apply call after it."""
+    sets = {"gn": set(), "attention": set(), "avg_pool_2x2": set(), "interleave_2x": set()}
+    pending = None
+    for name, sig in calls:
+        if name == "gn_stats":
+            pending = sig
+        elif name == "gn_apply":
+            sets["gn"].add(pending + (sig,))
+        else:
+            sets[name].add(sig)
+    return {k: sorted(v, key=str) for k, v in sets.items()}
 
 
 def main() -> None:
@@ -120,6 +220,7 @@ def main() -> None:
     args = ap.parse_args()
 
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's kernels run only on a CUDA card")
@@ -129,12 +230,20 @@ def main() -> None:
     from diffusion_uncertainty_torch.kernels import avgpool as kpool
     from diffusion_uncertainty_torch.kernels import groupnorm as kgn
     from diffusion_uncertainty_torch.kernels import interleave as kilv
-    from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig
+    from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, AutoencoderKL, SDUNet
     from diffusion_uncertainty_torch.models.layers import split_qkv
     from diffusion_uncertainty_torch.ops.groupnorm import _reference_impl
+    from diffusion_uncertainty_torch.pipelines import T2IPipelineConfig, TextToImageUncertaintyPipeline, pseudo_text_embeddings
+    from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config as T2IConfig
+    from diffusion_uncertainty_torch.scripts.generate_t2i_guided import build_sd_stack
     from diffusion_uncertainty_torch.uncertainty import EstimatorConfig, make_estimator
     from diffusion_uncertainty_torch.utils import TorchNoise
 
+    wrapper_mods = {"gn_stats": kgn, "gn_apply": kgn, "attention": katt, "avg_pool_2x2": kpool, "interleave_2x": kilv}
+    plains = {
+        "gn_stats": kgn.gn_stats_plain, "gn_apply": kgn.gn_apply_plain, "attention": katt.attention_plain,
+        "avg_pool_2x2": kpool.avg_pool_2x2_plain, "interleave_2x": kilv.interleave_2x_plain,
+    }
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -148,10 +257,15 @@ def main() -> None:
     print(f"[1] build: {build_s:.1f} s ({', '.join(kernels.SOURCES)}) on {card}", flush=True)
     details["build_s"] = build_s
     details["ptxas"] = dict(kernels._build.build_logs)
-
-    # ---- model + recording forward (phase 3's card run) ----------------
-    cfg = ADMUNetConfig.imagenet128()
     gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def check_counts(counts, path, what):
+        for name in path:
+            if counts[name] <= 0:
+                fail(f"{what}: kernel {name} was never launched")
+
+    # ---- recording forwards (the card runs of phases 3 and 5) -----------
+    cfg = ADMUNetConfig.imagenet128()
     with torch.device(dev):
         model = ADMUNet(cfg)
     with torch.no_grad():
@@ -161,144 +275,214 @@ def main() -> None:
     n_params = sum(p.numel() for p in model.parameters())
     x2 = torch.randn(2, 128, 128, 3, generator=gen, device=dev).to(torch.bfloat16)
     y2 = torch.randint(0, cfg.num_classes, (2,), generator=gen, device=dev)
-
-    log: list = []
     kernels.reset_launch_counts()
-    with torch.no_grad(), Recorder(kgn, "gn_stats", log), Recorder(kgn, "gn_apply", log), \
-            Recorder(katt, "attention", log), Recorder(kpool, "avg_pool_2x2", log), Recorder(kilv, "interleave_2x", log):
+    with torch.no_grad(), Recorder(wrapper_mods) as rec_adm:
         t0 = time.perf_counter()
-        out_gpu = model(x2, 500, y2)
+        out_adm = model(x2, 500, y2)
         torch.cuda.synchronize()
-        fwd_s = time.perf_counter() - t0
-    fwd_counts = kernels.launch_counts()
+        adm_fwd_s = time.perf_counter() - t0
+    adm_fwd_counts = kernels.launch_counts()
+
+    stack = build_sd_stack(T2IConfig(random_init=True), device=dev)
+    unet, vae = stack.unet, stack.vae
+    n_sd = sum(p.numel() for p in unet.parameters())
+    # bf16-representable inputs: the card's UNet casts them to bf16, and the
+    # CPU reference of phase 5 then sees the same values
+    xs = torch.randn(2, 64, 64, 4, generator=gen, device=dev).to(torch.bfloat16).float()
+    ctx = torch.from_numpy(pseudo_text_embeddings(["a photo of a cat", ""])).to(dev).to(torch.bfloat16).float()
+    kernels.reset_launch_counts()
+    with torch.no_grad(), Recorder(wrapper_mods) as rec_sd:
+        t0 = time.perf_counter()
+        out_sd = unet(xs, 500, ctx)
+        torch.cuda.synchronize()
+        sd_fwd_s = time.perf_counter() - t0
+    sd_fwd_counts = kernels.launch_counts()
+    z64 = torch.randn(1, 64, 64, 4, generator=gen, device=dev)
+    kernels.reset_launch_counts()
+    with torch.no_grad(), Recorder(wrapper_mods) as rec_vae:
+        img64 = vae.decode(z64)
+        torch.cuda.synchronize()
+    vae_counts = kernels.launch_counts()
 
     # ---- phase 2: every kernel against its plain version -----------------
-    sigs = {"gn": [], "attention": [], "avg_pool_2x2": [], "interleave_2x": []}
-    pending = None
-    for name, a, kw in log:
-        if name == "gn_stats":
-            x, g = a[0], a[3]
-            pending = (x.shape[1], x.shape[2], x.shape[3], g, a[5] is not None if len(a) > 5 else kw.get("scale") is not None)
-        elif name == "gn_apply":
-            silu = a[3] if len(a) > 3 else kw.get("apply_silu", True)
-            sigs["gn"].append(pending + (bool(silu),))
-        elif name == "attention":
-            q = a[0]
-            sigs["attention"].append((q.shape[1], q.shape[2], q.shape[3], q.stride(2) == 3 * q.shape[3]))
-        elif name == "avg_pool_2x2":
-            sigs["avg_pool_2x2"].append(tuple(a[0].shape[1:]))
-        else:
-            sigs["interleave_2x"].append(tuple(a[0].shape[1:]) + (a[0] is a[1],))
-    sigs = {k: sorted(set(v)) for k, v in sigs.items()}
-    print(f"[2] main-path shapes: " + ", ".join(f"{k} {len(v)}" for k, v in sigs.items()), flush=True)
-
-    err = {k: 0.0 for k in ("gn_stats", "gn_apply", "attention", "avg_pool_2x2", "interleave_2x")}
-    ms = {k: 0.0 for k in err}
-    plain_ms = {k: 0.0 for k in err}
+    sets = {"adm": shape_sets(rec_adm.sigs), "sd": shape_sets(rec_sd.sigs), "vae": shape_sets(rec_vae.sigs)}
+    for src, ss in sets.items():
+        print(f"[2] {src} shapes: " + ", ".join(f"{k} {len(v)}" for k, v in ss.items()), flush=True)
+    names = tuple(KERNELS)
+    err = {k: 0.0 for k in names}
+    # (kernel or "gn pair", model) -> sums over its distinct shapes at the model's main-path batch
+    sums: dict = {}
     rows = []
+
+    def add(what, src, **vals):
+        t = sums.setdefault((what, src), {"shapes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                          "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0})
+        t["shapes"] += 1
+        for key, val in vals.items():
+            t[key] += val
 
     def rnd(*shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale + shift).to(dtype)
 
-    def note(kernel, e, batch, dtype, k_ms=None, p_ms=None, shape=None, tol=None):
+    def note(kernel, e, src, batch, dtype, shape, tol, times=None, n_bytes=0.0, flops=0.0, **extra):
         err[kernel] = max(err[kernel], e)
-        if batch == 8 and dtype == torch.bfloat16 and k_ms is not None:
-            ms[kernel] += k_ms
-            plain_ms[kernel] += p_ms
-        rows.append({"kernel": kernel, "batch": batch, "dtype": str(dtype).split(".")[-1], "shape": shape,
-                     "max_abs_err": e, "tol": tol, "ms": k_ms, "plain_ms": p_ms})
+        row = {"kernel": kernel, "model": src, "batch": batch, "dtype": str(dtype).split(".")[-1], "shape": shape,
+               "max_abs_err": e, "tol": tol, **extra}
+        if times is not None:
+            b_ms, o_ms = bound_ms(n_bytes, flops)
+            row.update(times, bytes_ms=b_ms, ops_ms=o_ms, bound_ms=max(b_ms, o_ms))
+            if batch == CHECK_BATCHES[src][0]:
+                add(kernel, src, **times, bytes_ms=b_ms, ops_ms=o_ms, bound_ms=max(b_ms, o_ms))
+        rows.append(row)
 
-    for batch in (2, 8):
-        for dtype in (torch.bfloat16, torch.float32):
-            timed = dtype == torch.bfloat16
-            for h, w, c, groups, ss, silu in sigs["gn"]:
-                x = rnd(batch, h, w, c, dtype=dtype)
-                gamma, beta = rnd(c, dtype=dtype, scale=0.1, shift=1.0), rnd(c, dtype=dtype, scale=0.1)
-                sc = rnd(batch, c, dtype=dtype, scale=0.1) if ss else None
-                sh = rnd(batch, c, dtype=dtype, scale=0.1) if ss else None
-                a, b = kgn.gn_stats(x, gamma, beta, groups, 1e-5, sc, sh)
-                ap_, bp_ = kgn.gn_stats_plain(x, gamma, beta, groups, 1e-5, sc, sh)
-                y = kgn.gn_apply(x, a, b, silu)
-                ref = _reference_impl(x, gamma, beta, groups, 1e-5, sc, sh, silu).float()
-                e_pair = (y.float() - ref).abs()
-                tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-                bound = tol + (2.0**-7 * ref.abs() if dtype == torch.bfloat16 else 0.0)
-                if not bool((e_pair <= bound).all()):
-                    fail(f"GroupNorm pair disagrees at {(batch, h, w, c, groups, ss, silu, dtype)}: max err {float(e_pair.max())}")
-                e_stats = max(float((a - ap_).abs().max()), float((b - bp_).abs().max()))
-                if e_stats > 1e-3:
-                    fail(f"gn_stats disagrees at {(batch, h, w, c, groups)}: {e_stats}")
-                shape = [batch, h, w, c, groups, ss, silu]
-                k1 = p1 = k2 = p2 = None
-                if timed:
-                    k1 = device_ms(lambda: kgn.gn_stats(x, gamma, beta, groups, 1e-5, sc, sh))
-                    p1 = device_ms(lambda: kgn.gn_stats_plain(x, gamma, beta, groups, 1e-5, sc, sh))
-                    k2 = device_ms(lambda: kgn.gn_apply(x, a, b, silu))
-                    p2 = device_ms(lambda: kgn.gn_apply_plain(x, a, b, silu))
-                note("gn_stats", e_stats, batch, dtype, k1, p1, shape, 1e-3)
-                note("gn_apply", float(e_pair.max()), batch, dtype, k2, p2, shape, tol)
-            for s, heads, d, legacy in sigs["attention"]:
-                qkv = rnd(batch, s, 3 * heads * d, dtype=dtype)
-                q, k, v = split_qkv(qkv, heads, legacy)
-                o = katt.attention(q, k, v)
-                e = float((o.float() - katt.attention_plain(q, k, v).float()).abs().max())
-                tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-                if e > tol:
-                    fail(f"attention disagrees at {(batch, s, heads, d, dtype)}: {e}")
-                km = pm = None
-                if timed:
-                    km = device_ms(lambda: katt.attention(q, k, v))
-                    pm = device_ms(lambda: katt.attention_plain(q, k, v))
-                note("attention", e, batch, dtype, km, pm, [batch, s, heads, d, legacy], tol)
-            if not timed:
-                continue
-            for h, w, c in sigs["avg_pool_2x2"]:
-                x = rnd(batch, h, w, c)
-                y, ref = kpool.avg_pool_2x2(x), kpool.avg_pool_2x2_plain(x)
-                diff = (y.float() - ref.float()).abs()
-                if not bool((diff <= bf16_ulp(ref)).all()):
-                    fail(f"avg_pool_2x2 disagrees by more than 1 bf16 ulp at {(batch, h, w, c)}")
-                km, pm = device_ms(lambda: kpool.avg_pool_2x2(x)), device_ms(lambda: kpool.avg_pool_2x2_plain(x))
-                note("avg_pool_2x2", float(diff.max()), batch, dtype, km, pm, [batch, h, w, c], "1 ulp")
-            for h, w, c, same in sigs["interleave_2x"]:
-                ys = [rnd(batch, h, w, c)] * 4 if same else [rnd(batch, h, w, c) for _ in range(4)]
-                if not torch.equal(kilv.interleave_2x(*ys), kilv.interleave_2x_plain(*ys)):
-                    fail(f"interleave_2x is not bit-exact at {(batch, h, w, c)}")
-                km, pm = device_ms(lambda: kilv.interleave_2x(*ys)), device_ms(lambda: kilv.interleave_2x_plain(*ys))
-                note("interleave_2x", 0.0, batch, dtype, km, pm, [batch, h, w, c, same], "exact")
+    def gn_checks(src, batch, dtype, h, w, c, groups, eps, ss, silu):
+        timed = dtype == torch.bfloat16
+        x = rnd(batch, h, w, c, dtype=dtype)
+        gamma, beta = rnd(c, dtype=dtype, scale=0.1, shift=1.0), rnd(c, dtype=dtype, scale=0.1)
+        sc = rnd(batch, c, dtype=dtype, scale=0.1) if ss else None
+        sh = rnd(batch, c, dtype=dtype, scale=0.1) if ss else None
+        a, b = kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh)
+        ap_, bp_ = kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh)
+        y = kgn.gn_apply(x, a, b, silu)
+        ref = _reference_impl(x, gamma, beta, groups, eps, sc, sh, silu).float()
+        e_pair = (y.float() - ref).abs()
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        bound = tol + (2.0**-7 * ref.abs() if dtype == torch.bfloat16 else 0.0)
+        if not bool((e_pair <= bound).all()):
+            fail(f"GroupNorm pair disagrees at {(src, batch, h, w, c, groups, eps, ss, silu, dtype)}: max err {float(e_pair.max())}")
+        e_stats = max(float((a - ap_).abs().max()), float((b - bp_).abs().max()))
+        if e_stats > 1e-3:
+            fail(f"gn_stats disagrees at {(src, batch, h, w, c, groups, eps)}: {e_stats}")
+        shape = [batch, h, w, c, groups, eps, ss, silu]
+        t_stats = t_apply = None
+        nx = x.numel() * x.element_size()
+        n_coef = 2 * batch * c * 4  # A and B, float32
+        n_par = 2 * c * x.element_size() + (2 * batch * c * x.element_size() if ss else 0)
+        pair = {}
+        if timed:
+            xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view for the library call
+            lib = (lambda: F.silu(F.group_norm(xc, groups, gamma, beta, eps))) if silu else (lambda: F.group_norm(xc, groups, gamma, beta, eps))
+            lib_ms = device_ms(lib)  # the whole GroupNorm: both kernels' work
+            t_stats = {"ms": device_ms(lambda: kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh)),
+                       "plain_ms": device_ms(lambda: kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh)),
+                       "library_ms": lib_ms}
+            t_apply = {"ms": device_ms(lambda: kgn.gn_apply(x, a, b, silu)),
+                       "plain_ms": device_ms(lambda: kgn.gn_apply_plain(x, a, b, silu)),
+                       "library_ms": lib_ms}
+            pair = {"pair_ms": device_ms(lambda: kgn.gn_apply(x, *kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh), silu)),
+                    "pair_plain_ms": device_ms(lambda: kgn.gn_apply_plain(x, *kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh), silu)),
+                    "pair_bound_ms": bound_ms(2 * nx + n_par, 0.0)[0]}
+            if batch == CHECK_BATCHES[src][0]:
+                add("gn pair", src, ms=pair["pair_ms"], plain_ms=pair["pair_plain_ms"], library_ms=lib_ms,
+                    bytes_ms=pair["pair_bound_ms"], bound_ms=pair["pair_bound_ms"])
+        note("gn_stats", e_stats, src, batch, dtype, shape, 1e-3, t_stats, nx + n_par + n_coef, 0.0)
+        note("gn_apply", float(e_pair.max()), src, batch, dtype, shape, tol, t_apply, 2 * nx + n_coef, 0.0, **pair)
+
+    def attention_checks(src, batch, dtype, s, s_kv, heads, d, layout, kv_len):
+        if layout == "separate":
+            q, k, v = rnd(batch, s, heads, d, dtype=dtype), rnd(batch, s_kv, heads, d, dtype=dtype), rnd(batch, s_kv, heads, d, dtype=dtype)
+        else:
+            q, k, v = split_qkv(rnd(batch, s, 3 * heads * d, dtype=dtype), heads, layout == "legacy")
+        o = katt.attention(q, k, v, kv_len).float()
+        ref = katt.attention_plain(q, k, v, kv_len).float()
+        e = float((o - ref).abs().max())
+        ref_max = float(ref.abs().max())
+        rel = rel_l2(o, ref)
+        bf16 = dtype == torch.bfloat16
+        tol = (2.0**-6 if bf16 else 1e-4) * ref_max
+        name = "attention_long" if s_kv > katt.LONG_KEYS else "attention"
+        if not (e <= tol and (rel <= 5e-3 or not bf16)):
+            fail(f"{name} disagrees at {(src, batch, s, s_kv, heads, d, dtype)}: max err {e} (limit {tol}), rel L2 {rel}")
+        times = None
+        if dtype == torch.bfloat16:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            times = {"ms": device_ms(lambda: katt.attention(q, k, v, kv_len)),
+                     "plain_ms": device_ms(lambda: katt.attention_plain(q, k, v, kv_len)),
+                     "library_ms": device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))}
+        n_keys = s_kv if kv_len is None else kv_len
+        es = q.element_size()
+        n_bytes = (2 * batch * s * heads * d + 2 * batch * n_keys * heads * d) * es
+        note(name, e, src, batch, dtype, [batch, s, s_kv, heads, d, layout], tol, times, n_bytes,
+             4.0 * batch * heads * s * n_keys * d, plain_max=ref_max, rel_l2=rel)
+
+    def pool_checks(src, batch, h, w, c):
+        x = rnd(batch, h, w, c)
+        y, ref = kpool.avg_pool_2x2(x), kpool.avg_pool_2x2_plain(x)
+        diff = (y.float() - ref.float()).abs()
+        if not bool((diff <= bf16_ulp(ref)).all()):
+            fail(f"avg_pool_2x2 disagrees by more than 1 bf16 ulp at {(src, batch, h, w, c)}")
+        xc = x.permute(0, 3, 1, 2)
+        times = {"ms": device_ms(lambda: kpool.avg_pool_2x2(x)), "plain_ms": device_ms(lambda: kpool.avg_pool_2x2_plain(x)),
+                 "library_ms": device_ms(lambda: F.avg_pool2d(xc, 2))}
+        n = x.numel() * x.element_size()
+        note("avg_pool_2x2", float(diff.max()), src, batch, torch.bfloat16, [batch, h, w, c], "1 ulp", times, n + n / 4, 0.0)
+
+    def interleave_checks(src, batch, h, w, c, same):
+        ys = [rnd(batch, h, w, c)] * 4 if same else [rnd(batch, h, w, c) for _ in range(4)]
+        if not torch.equal(kilv.interleave_2x(*ys), kilv.interleave_2x_plain(*ys)):
+            fail(f"interleave_2x is not bit-exact at {(src, batch, h, w, c)}")
+
+        def library():
+            st = torch.stack([torch.stack([ys[0], ys[1]]), torch.stack([ys[2], ys[3]])])
+            return st.permute(2, 3, 0, 4, 1, 5).reshape(batch, 2 * h, 2 * w, c)
+
+        times = {"ms": device_ms(lambda: kilv.interleave_2x(*ys)), "plain_ms": device_ms(lambda: kilv.interleave_2x_plain(*ys)),
+                 "library_ms": device_ms(library)}
+        n_in = ys[0].numel() * ys[0].element_size()
+        note("interleave_2x", 0.0, src, batch, torch.bfloat16, [batch, h, w, c, same], "exact", times,
+             (1 if same else 4) * n_in + 4 * n_in, 0.0)
+
+    for src, ss in sets.items():
+        for batch in CHECK_BATCHES[src]:
+            for dtype in (torch.bfloat16, torch.float32):
+                for sig in ss["gn"]:
+                    gn_checks(src, batch, dtype, *sig)
+                for sig in ss["attention"]:
+                    attention_checks(src, batch, dtype, *sig)
+            for sig in ss["avg_pool_2x2"]:
+                pool_checks(src, batch, *sig)
+            for sig in ss["interleave_2x"]:
+                interleave_checks(src, batch, *sig)
     torch.cuda.synchronize()
     for r in rows:
-        if r["ms"] is not None:
-            print(f"    {r['kernel']:<13} {r['dtype']:<8} {str(r['shape']):<40} err {r['max_abs_err']:.3g}  "
-                  f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms", flush=True)
-    print(f"[2] kernels agree with their plain versions at every main-path shape: max errors {err}", flush=True)
+        if "ms" in r:
+            print(f"    {r['kernel']:<14} {r['model']:<4} {str(r['shape']):<48} err {r['max_abs_err']:.3g}  "
+                  f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound {r['bound_ms']:.4f}",
+                  flush=True)
+    for r in rows:
+        if "rel_l2" in r:
+            print(f"    {r['kernel']:<14} {r['model']:<4} {r['dtype']:<8} {str(r['shape']):<40} max|plain| {r['plain_max']:.4g}  "
+                  f"err {r['max_abs_err']:.3g} (limit {r['tol']:.3g})  rel L2 {r['rel_l2']:.3e}", flush=True)
+    print("[2] sums over each model's distinct shapes at its main-path batch, bf16, ms (the GN library call, "
+          "F.group_norm(+silu), covers the pair; 'gn pair' times gn_stats + gn_apply back to back):", flush=True)
+    for (what, src), t in sums.items():
+        by = "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes"
+        print(f"    {what:<14} {src:<4} {t['shapes']:>2} shapes  card {t['ms']:.4f}  plain {t['plain_ms']:.4f}  "
+              f"library {t['library_ms']:.4f}  bound {t['bound_ms']:.4f} ({by})", flush=True)
+    print(f"[2] kernels agree with their plain versions at every shape: max errors {err}", flush=True)
 
-    # ---- phase 3: full-width forward against float32 on the CPU ----------
-    for name, n in fwd_counts.items():
-        if n <= 0:
-            fail(f"forward: kernel {name} was never launched")
+    # ---- phase 3: full-width ADM forward against float32 on the CPU ------
+    check_counts(adm_fwd_counts, ADM_PATH, "ADM forward")
     t0 = time.perf_counter()
     with torch.device("meta"):
         cpu_model = ADMUNet(cfg)
     cpu_model.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()}, assign=True)
-    cpu_model.eval()
     with torch.no_grad():
-        ref = cpu_model(x2[:1].float().cpu(), 500, y2[:1].cpu())
+        ref = cpu_model.eval()(x2[:1].float().cpu(), 500, y2[:1].cpu())
     cpu_s = time.perf_counter() - t0
     del cpu_model
-    got = out_gpu[:1].float().cpu()
-    if not bool(torch.isfinite(got).all()):
-        fail("forward: non-finite output on the card")
-    rel_l2 = float((got - ref).norm() / ref.norm())
-    print(f"[3] ADM-128 forward ({n_params / 1e6:.1f}M params, bf16, batch 2): {fwd_s:.2f} s first call; "
-          f"image 0 vs float32 CPU (batch 1, {cpu_s:.1f} s): rel L2 {rel_l2:.3e} (limit 2e-2)", flush=True)
-    print(f"[3] kernels {json.dumps(fwd_counts)}", flush=True)
-    if not rel_l2 <= 2e-2:
-        fail(f"forward: relative L2 error {rel_l2} > 2e-2")
-    details.update(n_params=n_params, forward_rel_l2=rel_l2, forward_launches=fwd_counts)
+    if not bool(torch.isfinite(out_adm).all()):
+        fail("ADM forward: non-finite output on the card")
+    adm_rel = rel_l2(out_adm[:1], ref)
+    print(f"[3] ADM-128 forward ({n_params / 1e6:.1f}M params, bf16, batch 2): {adm_fwd_s:.2f} s first call; "
+          f"image 0 vs float32 CPU (batch 1, {cpu_s:.1f} s): rel L2 {adm_rel:.3e} (limit 2e-2)", flush=True)
+    print(f"[3] kernels {json.dumps(adm_fwd_counts)}", flush=True)
+    if not adm_rel <= 2e-2:
+        fail(f"ADM forward: relative L2 error {adm_rel} > 2e-2")
+    details.update(n_params=n_params, forward_rel_l2=adm_rel, forward_launches=adm_fwd_counts)
 
-    # ---- phase 4: the main path ------------------------------------------
-    B = BATCH
+    # ---- phase 4: the ADM main path ---------------------------------------
+    B = ADM_BATCH
     yb = torch.randint(0, cfg.num_classes, (B,), generator=gen, device=dev)
     x_T = torch.randn(B, 128, 128, 3, generator=gen, device=dev).to(torch.bfloat16)
     sched = make_schedule("linear", 1000, device=dev)
@@ -313,44 +497,139 @@ def main() -> None:
     res = sample_ddim(model_fn, sched, x_T, TorchNoise(SEED + 1, dev), scfg, estimator=est)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"main path: kernel {name} was never launched")
+    adm_launches = kernels.launch_counts()
+    check_counts(adm_launches, ADM_PATH, "ADM main path")
     if not bool(torch.isfinite(res.sample.float()).all()):
-        fail("main path: non-finite sample")
+        fail("ADM main path: non-finite sample")
     u = res.uncertainty
     if tuple(u.shape) != (10, B, 128, 128, 3):
-        fail(f"main path: uncertainty shape {tuple(u.shape)}")
+        fail(f"ADM main path: uncertainty shape {tuple(u.shape)}")
     u_mean = float(u.mean())
     if not (math.isfinite(u_mean) and u_mean > 0):
-        fail(f"main path: uncertainty mean {u_mean}")
+        fail(f"ADM main path: uncertainty mean {u_mean}")
     ips = B / wall
-    print(f"[4] main path: 50 DDIM steps, zigzag M=5 x3 in [40, 50), bf16, batch {B}: {wall:.2f} s, "
+    print(f"[4] ADM main path: 50 DDIM steps, zigzag M=5 x3 in [40, 50), bf16, batch {B}: {wall:.2f} s, "
           f"{ips:.4f} images/s on {card} (information, not a claim); uncertainty mean {u_mean:.4e}", flush=True)
-    print(f"[4] kernels {json.dumps(launches)}", flush=True)
-    details.update(main_path_s=wall, images_per_s=ips, main_path_launches=launches, uncertainty_mean=u_mean,
-                   checks=rows)
+    print(f"[4] kernels {json.dumps(adm_launches)}", flush=True)
+    details.update(main_path_s=wall, images_per_s=ips, main_path_launches=adm_launches, uncertainty_mean=u_mean)
+    del model, res
+
+    # ---- phase 5: full-width SD 1.5 UNet and VAE, forward and backward ---
+    check_counts(sd_fwd_counts, SD_PATH, "SD UNet forward")
+    if vae_counts["attention_long"] <= 0 or vae_counts["gn_apply"] <= 0:
+        fail(f"VAE decode: kernels not launched {vae_counts}")
+    if not (bool(torch.isfinite(out_sd).all()) and bool(torch.isfinite(img64).all())):
+        fail("SD forward: non-finite output on the card")
+    if tuple(img64.shape) != (1, 512, 512, 3):
+        fail(f"VAE decode: image shape {tuple(img64.shape)}")
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        cpu_unet = SDUNet(stack.mcfg)
+    cpu_unet.load_state_dict({k: v.float().cpu() for k, v in unet.state_dict().items()}, assign=True)
+    with torch.no_grad():
+        ref = cpu_unet.eval()(xs[:1].cpu(), 500, ctx[:1].cpu())
+    sd_cpu_s = time.perf_counter() - t0
+    del cpu_unet
+    sd_rel = rel_l2(out_sd[:1], ref)
+    with torch.no_grad(), PlainKernels(wrapper_mods, plains):
+        sd_plain_rel = rel_l2(unet(xs[:1], 500, ctx[:1]), ref)
+    z32 = torch.randn(1, 32, 32, 4, generator=gen, device=dev)
+    with torch.no_grad():
+        img32 = vae.decode(z32)
+    with torch.device("meta"):
+        cpu_vae = AutoencoderKL(vae.cfg)
+    cpu_vae.load_state_dict({k: v.float().cpu() for k, v in vae.state_dict().items()}, assign=True)
+    with torch.no_grad():
+        vae_rel = rel_l2(img32, cpu_vae.eval().decode(z32.cpu()))
+    del cpu_vae
+    print(f"[5] SD 1.5 UNet forward ({n_sd / 1e6:.1f}M params, bf16, batch 2): {sd_fwd_s:.2f} s first call; image 0 vs "
+          f"float32 CPU ({sd_cpu_s:.1f} s): rel L2 {sd_rel:.3e} (the plain versions on the card: {sd_plain_rel:.3e}); "
+          f"VAE decoder (float32) 32x32 latent: rel L2 {vae_rel:.3e} (limits 2e-2)", flush=True)
+    print(f"[5] kernels UNet {json.dumps(sd_fwd_counts)} VAE {json.dumps(vae_counts)}", flush=True)
+    if not (sd_rel <= 2e-2 and vae_rel <= 2e-2):
+        fail(f"SD forward: relative L2 errors {sd_rel}, {vae_rel} > 2e-2")
+
+    def input_grad():
+        xg = xs[:1].clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(unet(xg, 500, ctx[:1]).square().mean(), xg)
+        return g
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    grad = input_grad()
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    bwd_counts = kernels.launch_counts()
+    with PlainKernels(wrapper_mods, plains):
+        grad_plain = input_grad()
+    torch.cuda.synchronize()
+    if kernels.launch_counts() != bwd_counts:
+        fail("backward check: the plain-version run launched a kernel")
+    check_counts(bwd_counts, SD_PATH, "SD backward")
+    if not bool(torch.isfinite(grad).all()):
+        fail("SD backward: non-finite input gradient")
+    grad_rel = rel_l2(grad, grad_plain)
+    print(f"[5] SD 1.5 UNet backward (batch 1): {bwd_s:.2f} s; input grad vs the plain versions on the card: "
+          f"rel L2 {grad_rel:.3e} (limit 5e-2)", flush=True)
+    if not grad_rel <= 5e-2:
+        fail(f"SD backward: relative L2 error {grad_rel} > 5e-2")
+    details.update(sd_params=n_sd, sd_forward_rel_l2=sd_rel, sd_plain_rel_l2=sd_plain_rel, vae_rel_l2=vae_rel,
+                   sd_grad_rel_l2=grad_rel,
+                   sd_forward_launches=sd_fwd_counts, vae_launches=vae_counts)
+
+    # ---- phase 6: the SD 1.5 main path at the CLI defaults ---------------
+    cli = T2IConfig(random_init=True)
+    cond = torch.from_numpy(pseudo_text_embeddings([cli.prompt])).to(dev)
+    uncond = torch.from_numpy(pseudo_text_embeddings([cli.prompt_negative])).to(dev)
+    sd_runs = {}
+    for use_posterior in (False, True):
+        tag = "posterior" if use_posterior else "gradient"
+        pcfg = T2IPipelineConfig(
+            num_inference_steps=cli.num_steps, guidance_scale=cli.guidance_scale,
+            start_step_uc=cli.start_step_threshold, num_steps_uc=cli.num_steps_threshold,
+            percentile=cli.percentile, use_posterior=use_posterior, lr=cli.strength, M=cli.M,
+            latent_channels=stack.mcfg.in_channels, latent_size=stack.latent_size,
+        )
+        pipe = TextToImageUncertaintyPipeline(stack.denoise_fn, stack.schedule, stack.decode_fn, pcfg)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = pipe(cond, TorchNoise(cli.seed, dev), uncond_embeds=uncond)
+        torch.cuda.synchronize()
+        s_img = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        check_counts(counts, SD_PATH, f"SD main path ({tag})")
+        if tuple(out.images.shape) != (1, 512, 512, 3) or not bool(torch.isfinite(out.images).all()):
+            fail(f"SD main path ({tag}): images {tuple(out.images.shape)}, finite {bool(torch.isfinite(out.images).all())}")
+        if tuple(out.uncertainty.shape) != (1, 20, 64, 64, 4):
+            fail(f"SD main path ({tag}): uncertainty shape {tuple(out.uncertainty.shape)}")
+        um = float(out.uncertainty.mean())
+        if not (math.isfinite(um) and um > 0):
+            fail(f"SD main path ({tag}): uncertainty mean {um}")
+        print(f"[6] SD 1.5 main path ({tag} guidance): 512x512, 20 steps, CFG 7.5, window [0, 20), p 0.95, M=5: "
+              f"{s_img:.2f} s per image on {card} (information, not a claim); uncertainty mean {um:.4e}", flush=True)
+        print(f"[6] kernels {json.dumps(counts)}", flush=True)
+        sd_runs[tag] = {"s_per_image": s_img, "launches": counts, "uncertainty_mean": um}
+    details.update(sd_main_path=sd_runs, checks=rows, sums={f"{w} {src}": t for (w, src), t in sums.items()})
 
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
             json.dump(details, f, indent=1, default=str)
 
-    src = "diffusion_uncertainty_torch/kernels/csrc/"
-    meta = {
-        "gn_stats": (src + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:454"),
-        "gn_apply": (src + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:65"),
-        "attention": (src + "attention.cu", "diffusion_uncertainty_tpu/ops/flash_attention.py:87"),
-        "avg_pool_2x2": (src + "avgpool.cu", "diffusion_uncertainty_tpu/ops/avgpool.py:30"),
-        "interleave_2x": (src + "interleave.cu", "diffusion_uncertainty_tpu/ops/fused_upsample.py:110"),
-    }
+    launches = {k: adm_launches[k] + sum(r["launches"][k] for r in sd_runs.values()) for k in names}
+    entries = []
+    for k, (src, replaces) in KERNELS.items():
+        t = {key: sum(v[key] for (w, _), v in sums.items() if w == k)
+             for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms")}
+        entries.append({
+            "name": k, "route": "cuda", "source": src, "replaces": replaces, "launches": launches[k],
+            "max_abs_err": err[k], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes",
+            "library_ms": t["library_ms"],
+        })
     print(card, flush=True)
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": s, "replaces": r, "launches": launches[k],
-         "max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k]}
-        for k, (s, r) in meta.items()
-    ]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -89,14 +89,17 @@ def sample_ddim(
     collect_intermediates: bool = False,
     estimator_model_fn: Optional[ModelFn] = None,
 ) -> SampleResult:
-    """Run the reverse chain from ``x_T`` (on the schedule's device).
+    """Run the reverse chain from ``x_T`` on ``x_T``'s device (the schedule's
+    tables must be on the same device).
 
     ``noise`` supplies every Gaussian draw (see ``utils.rng`` for the order).
-    ``estimator_model_fn``: the model the estimator calls when it differs
-    from the trajectory model. ``guidance`` is not ported yet.
+    ``estimator_model_fn``: the model the estimator or the guidance calls
+    when it differs from the trajectory model. ``guidance``
+    (``uncertainty.guidance.Guidance``): inside the window it replaces the
+    estimator and sets x_{t-1} itself; the window's maps are its uncertainty
+    maps. The loop runs without autograd; a gradient guidance turns it back
+    on for its own forwards.
     """
-    if guidance is not None:
-        raise NotImplementedError("uncertainty guidance is not ported to the torch package yet")
     dcfg = cfg.diffusion
     ts = spaced_timesteps(cfg.num_train_timesteps, cfg.num_inference_steps, dcfg.timestep_spacing, dcfg.steps_offset)
     prev_ts = ts - cfg.num_train_timesteps // cfg.num_inference_steps
@@ -107,7 +110,7 @@ def sample_ddim(
         return ddim_step(schedule, x, model_output, t, t_prev, dcfg, noise=eta_noise)
 
     s0 = cfg.start_step
-    windowed = estimator is not None and cfg.num_steps_uc > 0
+    windowed = (estimator is not None or guidance is not None) and cfg.num_steps_uc > 0
     w0 = w1 = s0
     if windowed:
         w0, w1 = uncertainty_window(cfg.after_step, cfg.num_steps_uc, cfg.num_inference_steps)
@@ -119,11 +122,13 @@ def sample_ddim(
     pred_eps = torch.empty_like(uncertainty) if windowed else None
     inters = []
     est_fn = estimator_model_fn if estimator_model_fn is not None else model_fn
+    aux = guidance.init(x_T) if guidance is not None else None
 
     x = x_T
     for i in range(s0, cfg.num_inference_steps):
         t, t_prev = int(ts[i]), int(prev_ts[i])
         step = base_step(x, t, t_prev)
+        x_next = step.prev_sample
         if w0 <= i < w1:
             state = StepState(
                 sample=x,
@@ -133,9 +138,13 @@ def sample_ddim(
                 timestep=t,
                 prev_timestep=t_prev,
             )
-            uncertainty[i - w0] = estimator(est_fn, schedule, state, noise)
+            if guidance is not None:
+                x_next, u, aux = guidance.apply(est_fn, schedule, state, noise, aux)
+            else:
+                u = estimator(est_fn, schedule, state, noise)
+            uncertainty[i - w0] = u
             pred_eps[i - w0] = step.pred_epsilon
-        x = step.prev_sample
+        x = x_next
         if collect_intermediates:
             inters.append(x)
 

@@ -14,6 +14,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = [
     "NoiseSchedule",
     "make_betas",
@@ -115,10 +117,12 @@ def make_schedule(
     trained_betas: Optional[Sequence[float]] = None,
     set_alpha_to_one: bool = True,
     rescale_betas_zero_snr: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> NoiseSchedule:
-    """Float32 schedule tables on ``device``; ``trained_betas`` overrides
+    """Float32 schedule tables on ``device`` (the card unless the caller asks
+    for the CPU; raises without a card); ``trained_betas`` overrides
     ``kind``; ``rescale_betas_zero_snr`` is the terminal-SNR rescale."""
+    device = resolve_device(device)
     if trained_betas is not None:
         betas = np.asarray(trained_betas, dtype=np.float64)
     else:

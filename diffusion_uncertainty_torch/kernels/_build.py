@@ -12,6 +12,7 @@ Nothing here runs at import time: the CPU-only test machine has no ``nvcc``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -22,7 +23,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check", "stream_ptr", "dtype_code", "require_cuda"]
+__all__ = [
+    "SOURCES", "BUILD_DIR", "COUNTERS", "LAUNCHES", "build", "load", "check", "stream_ptr", "dtype_code", "require_cuda",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -31,6 +34,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# launch counters: each wrapper adds one to its name where it launches its
+# kernel, and nowhere else (``attention_long``: attention over more than 2048
+# keys, the Pallas flash ``_kernel``'s regime)
+COUNTERS = ("gn_stats", "gn_apply", "attention", "attention_long", "avg_pool_2x2", "interleave_2x")
+LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each build, by source name

@@ -1,13 +1,16 @@
 """Exact softmax attention kernel over [B, S, H, D] row-strided views.
 Source: ``csrc/attention.cu``.
 
-Replaces ``_kernel_whole_row`` of ``diffusion_uncertainty_tpu/ops/flash_attention.py``
-and ``_kernel`` of ``diffusion_uncertainty_tpu/ops/packed_attention.py``: both
-compute softmax(QKᵀ/√d)V with float32 logits. q, k and v may be views into
-one qkv projection (any batch/sequence/head strides, last axis contiguous),
-so neither attention order needs a copy. The wrapper takes its plain version
-for CPU tensors and launches the kernel for CUDA tensors; ``launches`` counts
-kernel launches only.
+Replaces ``_kernel_whole_row`` and ``_kernel`` (the online-softmax loop over
+key blocks, taken for S_kv > 2048) of
+``diffusion_uncertainty_tpu/ops/flash_attention.py`` and ``_kernel`` of
+``diffusion_uncertainty_tpu/ops/packed_attention.py``: all compute
+softmax(QKᵀ/√d)V with float32 logits. q, k and v may be views into one qkv
+projection (any batch/sequence/head strides, last axis contiguous), so
+neither attention order needs a copy. Head dims: multiples of 8 up to 512.
+The wrapper takes its plain version for CPU tensors and launches the kernel
+for CUDA tensors; launches over more than ``LONG_KEYS`` keys count as
+``attention_long``, the others as ``attention`` (``_build.LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -20,9 +23,12 @@ import torch
 
 from . import _build
 
-__all__ = ["attention", "attention_plain", "MAX_HEAD_DIM"]
+__all__ = ["attention", "attention_plain", "MAX_HEAD_DIM", "LONG_KEYS"]
 
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 512
+# key counts above this are the Pallas flash ``_kernel``'s regime
+# (``_WHOLE_ROW_MAX_S``, flash_attention.py:119)
+LONG_KEYS = 2048
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,8 +86,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: Optiona
         ctypes.cast(strides, _P), 1.0 / math.sqrt(d), _build.dtype_code(q), int(aligned), _build.stream_ptr(q),
     )
     _build.check(lib, err, "attention")
-    attention.launches += 1
+    _build.LAUNCHES["attention_long" if s_kv > LONG_KEYS else "attention"] += 1
     return out
-
-
-attention.launches = 0

@@ -2,7 +2,7 @@
 
 Replaces ``_kernel`` of ``diffusion_uncertainty_tpu/ops/avgpool.py``. The
 wrapper takes its plain version for CPU tensors and launches the kernel for
-CUDA tensors; ``launches`` counts kernel launches only.
+CUDA tensors; its launches are counted in ``_build.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -49,8 +49,6 @@ def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     err = lib.du_avgpool(x.data_ptr(), y.data_ptr(), b, h, w, c, _build.dtype_code(x), int(vec), _build.stream_ptr(x))
     _build.check(lib, err, "avg_pool_2x2")
-    avg_pool_2x2.launches += 1
+    _build.LAUNCHES["avg_pool_2x2"] += 1
     return y
 
-
-avg_pool_2x2.launches = 0

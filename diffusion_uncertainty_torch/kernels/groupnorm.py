@@ -5,7 +5,7 @@ Replaces the Pallas GroupNorm family of
 ``diffusion_uncertainty_tpu/ops/groupnorm.py`` (``_kernel``, ``_hwnc_kernel``,
 ``_stats_kernel``, ``_tiled_kernel``). Each wrapper takes its plain PyTorch
 version for a tensor on the CPU and launches its kernel for a CUDA tensor;
-``launches`` counts kernel launches only.
+its launches are counted in ``_build.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -98,11 +98,9 @@ def gn_stats(
         _build.dtype_code(x), int(vec), _build.stream_ptr(x),
     )
     _build.check(lib, err, "gn_stats")
-    gn_stats.launches += 1
+    _build.LAUNCHES["gn_stats"] += 1
     return a, b
 
-
-gn_stats.launches = 0
 
 
 def gn_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, apply_silu: bool = True) -> torch.Tensor:
@@ -124,8 +122,6 @@ def gn_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, apply_silu: bool
         int(apply_silu), _build.dtype_code(x), int(vec), _build.stream_ptr(x),
     )
     _build.check(lib, err, "gn_apply")
-    gn_apply.launches += 1
+    _build.LAUNCHES["gn_apply"] += 1
     return y
 
-
-gn_apply.launches = 0

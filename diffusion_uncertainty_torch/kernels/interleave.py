@@ -4,7 +4,7 @@ and wide, out[:, 2i+a, 2j+b] = y_ab[:, i, j]. Source: ``csrc/interleave.cu``.
 Replaces ``_ilv_kernel`` of ``diffusion_uncertainty_tpu/ops/fused_upsample.py``.
 Nearest-2× upsampling is the same call with one tensor passed four times.
 The wrapper takes its plain version for CPU tensors and launches the kernel
-for CUDA tensors; ``launches`` counts kernel launches only.
+for CUDA tensors; its launches are counted in ``_build.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -56,8 +56,6 @@ def interleave_2x(y00: torch.Tensor, y01: torch.Tensor, y10: torch.Tensor, y11: 
     lib = _lib()
     err = lib.du_interleave(*(y.data_ptr() for y in ys), out.data_ptr(), n, h, w, pixel_bytes, word, _build.stream_ptr(y00))
     _build.check(lib, err, "interleave_2x")
-    interleave_2x.launches += 1
+    _build.LAUNCHES["interleave_2x"] += 1
     return out
 
-
-interleave_2x.launches = 0

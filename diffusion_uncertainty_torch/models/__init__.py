@@ -2,4 +2,10 @@
 Parameters use the reference's torch state-dict layout."""
 
 from .adm_unet import ADMUNet, ADMUNetConfig  # noqa: F401
-from .convert import adm_state_dict_from_flax  # noqa: F401
+from .autoencoder import AutoencoderKL, AutoencoderKLConfig  # noqa: F401
+from .convert import (  # noqa: F401
+    adm_state_dict_from_flax,
+    autoencoder_kl_state_dict_from_flax,
+    sd_unet_state_dict_from_flax,
+)
+from .sd_unet import SDUNet, SDUNetConfig  # noqa: F401

@@ -2,10 +2,20 @@
 
 JAX counterpart: ``diffusion_uncertainty_tpu/models/convert.py``. The port's
 modules use the reference's torch state-dict layout, so a reference
-checkpoint loads directly. ``adm_state_dict_from_flax`` goes the other way
-from ``convert_adm_unet``: it takes the JAX ``ADMUNet`` parameters (nested
-dicts of arrays) and returns the reference-layout state dict, undoing every
-transpose and the legacy qkv row permutation exactly.
+checkpoint loads directly. Each function here goes the other way from one
+JAX converter: it takes the JAX model's parameters (nested dicts of arrays,
+with or without the ``{"params": ...}`` wrapper) and returns the
+reference-layout state dict (float32, on the CPU), undoing every transpose
+exactly:
+
+* ``adm_state_dict_from_flax`` inverts ``convert_adm_unet`` (and its legacy
+  qkv row permutation);
+* ``sd_unet_state_dict_from_flax`` inverts ``convert_sd_unet`` (diffusers
+  ``UNet2DConditionModel`` layout, 1×1-conv or linear transformer
+  projections);
+* ``autoencoder_kl_state_dict_from_flax`` inverts ``convert_autoencoder_kl``
+  (CompVis KL-f8 layout; the encoder and quant convs when the parameters
+  have them).
 """
 
 from __future__ import annotations
@@ -15,7 +25,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["adm_state_dict_from_flax", "legacy_qkv_permutation"]
+__all__ = [
+    "adm_state_dict_from_flax",
+    "sd_unet_state_dict_from_flax",
+    "autoencoder_kl_state_dict_from_flax",
+    "legacy_qkv_permutation",
+]
 
 
 def legacy_qkv_permutation(channels: int, heads: int) -> np.ndarray:
@@ -49,7 +64,55 @@ class _Out:
 
     def dense(self, pfx: str, p: dict) -> None:
         self.put(f"{pfx}.weight", np.asarray(p["kernel"]).T)
+        if "bias" in p:
+            self.put(f"{pfx}.bias", p["bias"])
+
+    def conv1x1(self, pfx: str, p: dict) -> None:
+        """A Dense stored as a 1×1 Conv2d [out, in, 1, 1]."""
+        self.put(f"{pfx}.weight", np.asarray(p["kernel"]).T[:, :, None, None])
         self.put(f"{pfx}.bias", p["bias"])
+
+    def norm(self, pfx: str, scale, bias) -> None:
+        self.put(f"{pfx}.weight", scale)
+        self.put(f"{pfx}.bias", bias)
+
+    def hf_resnet(self, pfx: str, p: dict) -> None:
+        self.norm(f"{pfx}.norm1", p["norm1_scale"], p["norm1_bias"])
+        self.conv(f"{pfx}.conv1", p["conv1"])
+        self.dense(f"{pfx}.time_emb_proj", p["time_emb_proj"])
+        self.norm(f"{pfx}.norm2", p["norm2_scale"], p["norm2_bias"])
+        self.conv(f"{pfx}.conv2", p["conv2"])
+        if "conv_shortcut" in p:
+            self.conv(f"{pfx}.conv_shortcut", p["conv_shortcut"])
+
+    def sd_transformer(self, pfx: str, p: dict, depth: int, linear_proj: bool) -> None:
+        proj = self.dense if linear_proj else self.conv1x1
+        self.norm(f"{pfx}.norm", p["norm_scale"], p["norm_bias"])
+        proj(f"{pfx}.proj_in", p["proj_in"])
+        proj(f"{pfx}.proj_out", p["proj_out"])
+        for k in range(depth):
+            b, blk = f"{pfx}.transformer_blocks.{k}", p[f"block_{k}"]
+            for n in ("norm1", "norm2", "norm3"):
+                self.norm(f"{b}.{n}", blk[n]["scale"], blk[n]["bias"])
+            for a in ("attn1", "attn2"):
+                for w in ("to_q", "to_k", "to_v"):
+                    self.dense(f"{b}.{a}.{w}", blk[a][w])
+                self.dense(f"{b}.{a}.to_out.0", blk[a]["to_out"])
+            self.dense(f"{b}.ff.net.0.proj", blk["ff_proj"])
+            self.dense(f"{b}.ff.net.2", blk["ff_out"])
+
+    def vae_resblock(self, pfx: str, p: dict) -> None:
+        self.norm(f"{pfx}.norm1", p["norm1_scale"], p["norm1_bias"])
+        self.conv(f"{pfx}.conv1", p["conv1"])
+        self.norm(f"{pfx}.norm2", p["norm2_scale"], p["norm2_bias"])
+        self.conv(f"{pfx}.conv2", p["conv2"])
+        if "nin_shortcut" in p:
+            self.conv(f"{pfx}.nin_shortcut", p["nin_shortcut"])
+
+    def vae_attn(self, pfx: str, p: dict) -> None:
+        self.norm(f"{pfx}.norm", p["norm_scale"], p["norm_bias"])
+        for w in ("q", "k", "v", "proj_out"):
+            self.conv1x1(f"{pfx}.{w}", p[w])
 
     def resblock(self, pfx: str, p: dict) -> None:
         self.put(f"{pfx}.in_layers.0.weight", p["in_norm_scale"])
@@ -133,4 +196,74 @@ def adm_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
     out.put("out.0.weight", P["out_norm_scale"])
     out.put("out.0.bias", P["out_norm_bias"])
     out.conv("out.2", P["conv_out"])
+    return out.sd
+
+
+def sd_unet_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``SDUNet`` params -> diffusers ``UNet2DConditionModel`` state dict.
+    Walks the same block program as ``convert_sd_unet``."""
+    P = params.get("params", params)
+    out = _Out()
+    depth, lin = cfg.transformer_layers_per_block, cfg.use_linear_projection
+    out.dense("time_embedding.linear_1", P["time_dense_0"])
+    out.dense("time_embedding.linear_2", P["time_dense_1"])
+    out.conv("conv_in", P["conv_in"])
+    n_levels = len(cfg.block_out_channels)
+    for bi, btype in enumerate(cfg.down_block_types):
+        for li in range(cfg.layers_per_block):
+            out.hf_resnet(f"down_blocks.{bi}.resnets.{li}", P[f"down_{bi}_res_{li}"])
+            if btype == "CrossAttnDownBlock2D":
+                out.sd_transformer(f"down_blocks.{bi}.attentions.{li}", P[f"down_{bi}_attn_{li}"], depth, lin)
+        if bi != n_levels - 1:
+            out.conv(f"down_blocks.{bi}.downsamplers.0.conv", P[f"down_{bi}_downsample"])
+    out.hf_resnet("mid_block.resnets.0", P["mid_res_0"])
+    out.sd_transformer("mid_block.attentions.0", P["mid_attn_0"], depth, lin)
+    out.hf_resnet("mid_block.resnets.1", P["mid_res_1"])
+    for bi, btype in enumerate(cfg.up_block_types):
+        for li in range(cfg.layers_per_block + 1):
+            out.hf_resnet(f"up_blocks.{bi}.resnets.{li}", P[f"up_{bi}_res_{li}"])
+            if btype == "CrossAttnUpBlock2D":
+                out.sd_transformer(f"up_blocks.{bi}.attentions.{li}", P[f"up_{bi}_attn_{li}"], depth, lin)
+        if bi != n_levels - 1:
+            out.conv(f"up_blocks.{bi}.upsamplers.0.conv", P[f"up_{bi}_upsample"])
+    out.norm("conv_norm_out", P["out_norm_scale"], P["out_norm_bias"])
+    out.conv("conv_out", P["conv_out"])
+    return out.sd
+
+
+def autoencoder_kl_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``AutoencoderKL`` params -> CompVis KL-f8 state dict. Parameters
+    made by a decode-only ``init`` have no encoder or ``quant_conv``; the
+    dict then has none either."""
+    P = params.get("params", params)
+    out = _Out()
+    n_levels = len(cfg.ch_mult)
+    if "encoder" in P:
+        E = P["encoder"]
+        out.conv("encoder.conv_in", E["conv_in"])
+        for lv in range(n_levels):
+            for i in range(cfg.num_res_blocks):
+                out.vae_resblock(f"encoder.down.{lv}.block.{i}", E[f"down_{lv}_block_{i}"])
+            if lv != n_levels - 1:
+                out.conv(f"encoder.down.{lv}.downsample.conv", E[f"down_{lv}_downsample"])
+        out.vae_resblock("encoder.mid.block_1", E["mid_block_1"])
+        out.vae_attn("encoder.mid.attn_1", E["mid_attn_1"])
+        out.vae_resblock("encoder.mid.block_2", E["mid_block_2"])
+        out.norm("encoder.norm_out", E["norm_out_scale"], E["norm_out_bias"])
+        out.conv("encoder.conv_out", E["conv_out"])
+    D = P["decoder"]
+    out.conv("decoder.conv_in", D["conv_in"])
+    out.vae_resblock("decoder.mid.block_1", D["mid_block_1"])
+    out.vae_attn("decoder.mid.attn_1", D["mid_attn_1"])
+    out.vae_resblock("decoder.mid.block_2", D["mid_block_2"])
+    for lv in reversed(range(n_levels)):
+        for i in range(cfg.num_res_blocks + 1):
+            out.vae_resblock(f"decoder.up.{lv}.block.{i}", D[f"up_{lv}_block_{i}"])
+        if lv != 0:
+            out.conv(f"decoder.up.{lv}.upsample.conv", D[f"up_{lv}_upsample"])
+    out.norm("decoder.norm_out", D["norm_out_scale"], D["norm_out_bias"])
+    out.conv("decoder.conv_out", D["conv_out"])
+    for name in ("quant_conv", "post_quant_conv"):
+        if name in P:
+            out.conv(name, P[name])
     return out.sd

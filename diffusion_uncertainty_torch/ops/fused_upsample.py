@@ -7,7 +7,9 @@ convs at the low resolution (2.25× fewer MACs, no upsampled intermediate)
 followed by a phase interleave. The phase convs go to cuDNN (asymmetric
 zero padding via ``F.pad``, channels_last views of the NHWC tensors); the
 interleave goes to the Hopper kernel ``kernels.interleave.interleave_2x``
-for CUDA tensors, and to its stack+transpose plain version on the CPU.
+for CUDA tensors, and to its stack+transpose plain version on the CPU. Its
+gradient is the four strided slices of the cotangent
+(``_interleave_nhwc_bwd``).
 """
 
 from __future__ import annotations
@@ -56,9 +58,25 @@ def upsample2_conv1x1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
     return nearest_upsample_2x(conv2d_nhwc(x, w, b))
 
 
+class _Interleave(torch.autograd.Function):
+    """Kernel forward; the backward takes out the four phases of the
+    cotangent (``_interleave_nhwc_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, y00, y01, y10, y11):
+        return _k.interleave_2x(y00, y01, y10, y11)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, 0::2, 0::2], g[:, 0::2, 1::2], g[:, 1::2, 0::2], g[:, 1::2, 1::2]
+
+
 def interleave_phases_2x(y00, y01, y10, y11) -> torch.Tensor:
-    """out[:, 2i+a, 2j+b] = y_ab[:, i, j]."""
-    return _k.interleave_2x(*(y.contiguous() for y in (y00, y01, y10, y11)))
+    """out[:, 2i+a, 2j+b] = y_ab[:, i, j]. Differentiable in every phase."""
+    ys = tuple(y.contiguous() for y in (y00, y01, y10, y11))
+    if torch.is_grad_enabled() and any(y.requires_grad for y in ys):
+        return _Interleave.apply(*ys)
+    return _k.interleave_2x(*ys)
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:

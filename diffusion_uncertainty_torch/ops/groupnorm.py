@@ -1,10 +1,12 @@
-"""Fused GroupNorm(+scale-shift)(+SiLU).
+"""Fused GroupNorm(+scale-shift)(+SiLU), with its gradient.
 
 JAX counterpart: ``diffusion_uncertainty_tpu/ops/groupnorm.py``
-(``group_norm_silu``). For CPU tensors the op runs its plain version,
-``_reference_impl`` (two-pass float32 statistics); for CUDA tensors it runs
-the Hopper kernel pair ``kernels.groupnorm.gn_stats`` + ``gn_apply`` at every
-site, whatever the batch or channel count.
+(``group_norm_silu``, ``_pallas_gn`` and its VJP ``_pallas_gn_bwd``). For CPU
+tensors the op runs its plain version, ``_reference_impl`` (two-pass float32
+statistics); for CUDA tensors it runs the Hopper kernel pair
+``kernels.groupnorm.gn_stats`` + ``gn_apply`` at every site, whatever the
+batch or channel count. The backward is autograd through
+``_reference_impl``, as ``_pallas_gn_bwd`` is ``jax.vjp`` of it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,40 @@ def _reference_impl(x, gamma, beta, num_groups, eps, scale, shift, apply_silu):
     return y.to(x.dtype)
 
 
+def _forward(x, gamma, beta, scale, shift, num_groups, eps, apply_silu):
+    """The kernel pair on a CUDA tensor, ``_reference_impl`` on the CPU."""
+    if x.device.type == "cpu":
+        return _reference_impl(x, gamma, beta, num_groups, eps, scale, shift, apply_silu)
+    a, b = _k.gn_stats(x, gamma, beta, num_groups, eps, scale, shift)
+    return _k.gn_apply(x, a, b, apply_silu)
+
+
+class _GroupNorm(torch.autograd.Function):
+    """``_forward``; backward by autograd through ``_reference_impl`` on the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, scale, shift, num_groups, eps, apply_silu):
+        ctx.save_for_backward(x, gamma, beta, scale, shift)
+        ctx.args = (num_groups, eps, apply_silu)
+        return _forward(x, gamma, beta, scale, shift, num_groups, eps, apply_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            x, gamma, beta, scale, shift = ins
+            if scale is not None:
+                b, c = x.shape[0], x.shape[-1]
+                scale, shift = scale.reshape(b, 1, 1, c), shift.reshape(b, 1, 1, c)
+            y = _reference_impl(x, gamma, beta, *ctx.args[:2], scale, shift, ctx.args[2])
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+        return tuple(next(got) if n else None for n in need) + (None, None, None)
+
+
 def group_norm_silu(
     x: torch.Tensor,  # [B, H, W, C]
     gamma: torch.Tensor,  # [C]
@@ -51,8 +87,7 @@ def group_norm_silu(
         raise ValueError("scale and shift must be passed together")
     if c % num_groups:
         raise ValueError(f"C={c} is not divisible by num_groups={num_groups}")
-    if x.device.type == "cpu":
-        return _reference_impl(x, gamma, beta, num_groups, eps, scale, shift, apply_silu)
-    x = x.contiguous()
-    a, b = _k.gn_stats(x, gamma, beta, num_groups, eps, scale, shift)
-    return _k.gn_apply(x, a, b, apply_silu)
+    args = (x.contiguous(), gamma, beta, scale, shift, num_groups, eps, apply_silu)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args[:5]):
+        return _GroupNorm.apply(*args)
+    return _forward(*args)  # no graph to record: skip the autograd.Function's per-call cost

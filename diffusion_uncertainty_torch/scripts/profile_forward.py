@@ -1,0 +1,125 @@
+"""Where the device time of one full-width forward goes, on the card.
+
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model sd15 --batch 2 [--json PATH]
+
+No JAX counterpart (the JAX package's profiles are TPU traces). Builds the
+model with seeded random bf16 weights (``generate_t2i_guided.init_random_``;
+``sd15``: the SD 1.5 UNet at a 64x64 latent, t=500, pseudo-text context;
+``adm128``: ImageNet-128 ADM, t=500), times ``ITERS`` forwards on the host
+clock (ending in a synchronize), then traces ``TRACE`` more with
+``torch.profiler`` and prints the device time
+per forward by kernel family and the largest kernels, the device's busy
+share of the wall time and the kernel launches per forward.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import torch
+
+from ..models import ADMUNet, ADMUNetConfig
+from ..pipelines import pseudo_text_embeddings
+from .generate_t2i_guided import Config, build_sd_stack, init_random_
+
+ITERS = 10  # forwards timed on the host clock
+TRACE = 3  # forwards traced by torch.profiler
+# kernel-name substrings -> family, first match wins
+FAMILIES = (
+    ("attention (port kernel)", ("attention_kernel", "attention_wide_kernel", "attention_mma_kernel")),
+    ("GN pair (port kernels)", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("interleave (port kernel)", ("interleave",)),
+    ("avg-pool (port kernel)", ("avgpool", "avg_pool")),
+    ("convolutions (cuDNN)", ("conv", "implicit", "wgrad", "dgrad", "fprop", "cudnn", "winograd")),
+    ("matmuls (cuBLAS)", ("gemm", "gemv", "nvjet", "sm90_xmma", "cutlass", "ampere", "splitk")),
+    ("copies, casts, cat", ("copy", "cat", "to_copy", "transpose", "CatArray")),
+    ("layer norm, softmax", ("layer_norm", "LayerNorm", "softmax")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce")),
+)
+
+
+def _family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other"
+
+
+def build(model: str, batch: int, device):
+    """(forward closure, parameter count) with seeded random bf16 weights."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    if model == "sd15":
+        stack = build_sd_stack(Config(random_init=True), device=device)
+        x = torch.randn(batch, 64, 64, 4, generator=gen, device=device)
+        ctx = torch.from_numpy(pseudo_text_embeddings(["a photo of a cat"] * batch)).to(device)
+        return (lambda: stack.unet(x, 500, ctx)), sum(p.numel() for p in stack.unet.parameters())
+    if model == "adm128":
+        cfg = ADMUNetConfig.imagenet128()
+        with torch.device(device):
+            net = init_random_(ADMUNet(cfg), seed=0)
+        net = net.to(dtype=torch.bfloat16, memory_format=torch.channels_last).eval()
+        x = torch.randn(batch, 128, 128, 3, generator=gen, device=device).to(torch.bfloat16)
+        y = torch.randint(0, cfg.num_classes, (batch,), generator=gen, device=device)
+        return (lambda: net(x, 500, y)), sum(p.numel() for p in net.parameters())
+    raise SystemExit(f"unknown model {model!r}: sd15 | adm128")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Profile one full-width forward on the card.")
+    ap.add_argument("--model", default="sd15", help="sd15 | adm128")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--json", help="write the breakdown as JSON to this path")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_forward needs a CUDA card")
+    dev = torch.device("cuda")
+    fwd, n_params = build(args.model, args.batch, dev)
+    with torch.no_grad():
+        for _ in range(2):
+            fwd()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            fwd()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / ITERS * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(TRACE):
+                fwd()
+            torch.cuda.synchronize()
+    by_kernel: dict = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            k = by_kernel[evt.name]
+            k[0] += evt.time_range.elapsed_us() / 1e3 / TRACE  # ms per forward
+            k[1] += 1
+    fams: dict = defaultdict(float)
+    for name, (ms, _) in by_kernel.items():
+        fams[_family(name)] += ms
+    device_ms = sum(fams.values())
+    launches = sum(n for _, n in by_kernel.values()) / TRACE
+    out = {
+        "model": args.model, "batch": args.batch, "params_m": n_params / 1e6, "device": torch.cuda.get_device_name(0),
+        "wall_ms": wall_ms, "device_ms": device_ms, "device_busy": device_ms / wall_ms,
+        "launches_per_forward": launches,
+        "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": {n: ms for n, (ms, _) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]},
+    }
+    print(f"{args.model} batch {args.batch}: {wall_ms:.2f} ms wall per forward, device busy {device_ms:.2f} ms "
+          f"({100 * device_ms / wall_ms:.0f}%), {launches:.0f} kernel launches")
+    for fam, ms in out["families_ms"].items():
+        print(f"  {fam:<26} {ms:8.3f} ms")
+    for name, ms in out["top_kernels_ms"].items():
+        print(f"    {ms:8.3f} ms  {name[:110]}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

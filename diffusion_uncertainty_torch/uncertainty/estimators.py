@@ -2,7 +2,8 @@
 
 JAX counterpart: ``diffusion_uncertainty_tpu/uncertainty/estimators.py``.
 Ported so far: ``uncertainty_centered`` and ``uncertainty_zigzag_centered``
-(and their aliases). ``vmap`` over the M ensemble members becomes members
+(and their aliases), and ``_ensemble_noised_scores``, which the guidance
+shares. ``vmap`` over the M ensemble members becomes members
 folded into the batch; ``lax.map`` becomes a loop over member groups.
 
 Estimator contract (see ``diffusion.sampler``):
@@ -82,13 +83,18 @@ def _centered_u(scores: torch.Tensor, pred_epsilon: torch.Tensor) -> torch.Tenso
     return torch.mean(d * d, dim=0)
 
 
+def _ensemble_noised_scores(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
+    """[M, B, ...] scores of M independently re-noised forwards (one
+    [M, *shape] float32 draw from ``noise``)."""
+    noises = noise.normal((cfg.M,) + tuple(state.pred_x0.shape), torch.float32, state.pred_x0.device)
+    x_hats = torch.stack([_renoise(schedule, state, n, cfg.predict_next) for n in noises])
+    return ensemble_forward(model_fn, x_hats, state.timestep, cfg.ensemble_chunk)
+
+
 def centered(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
     """u = mean_m (score_m − pred_eps)² over M re-noised forwards around
     pred_x0 (one [M, *shape] draw per step)."""
-    noises = noise.normal((cfg.M,) + tuple(state.pred_x0.shape), torch.float32, state.pred_x0.device)
-    x_hats = torch.stack([_renoise(schedule, state, n, cfg.predict_next) for n in noises])
-    scores = ensemble_forward(model_fn, x_hats, state.timestep, cfg.ensemble_chunk)
-    return _centered_u(scores, state.pred_epsilon)
+    return _centered_u(_ensemble_noised_scores(model_fn, schedule, state, noise, cfg), state.pred_epsilon)
 
 
 def zigzag_centered(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):

@@ -13,7 +13,9 @@ step, the DDIM eta noise of that step (only when ``eta > 0``, shape of x),
 and, for each step inside the uncertainty window, the estimator's draws:
 ``uncertainty_zigzag_centered`` draws member by member, zig by zig, one
 float32 tensor of the sample's shape each (M · num_zigzag draws per step);
-``uncertainty_centered`` draws one [M, *shape] tensor per step.
+``uncertainty_centered`` draws one [M, *shape] tensor per step. With a
+guidance in place of the estimator (``uncertainty.guidance``), each window
+step draws one [M, *shape] tensor for the guidance's ensemble.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from __future__ import annotations
 from typing import Protocol, Sequence
 
 import torch
+
+from .device import resolve_device
 
 __all__ = ["NoiseSource", "TorchNoise"]
 
@@ -30,10 +34,11 @@ class NoiseSource(Protocol):
 
 
 class TorchNoise:
-    """Standard normal draws from a seeded ``torch.Generator`` on ``device``."""
+    """Standard normal draws from a seeded ``torch.Generator`` on ``device``
+    (the card unless the caller asks for the CPU; raises without a card)."""
 
-    def __init__(self, seed: int, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, seed: int, device="cuda"):
+        self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 

@@ -19,6 +19,7 @@ from diffusion_uncertainty_torch.diffusion import to_uint8 as t_to_uint8
 from diffusion_uncertainty_torch.diffusion.sampler import _recompute_prev as t_recompute_prev
 from diffusion_uncertainty_torch.models.layers import timestep_embedding as t_temb
 from diffusion_uncertainty_torch.uncertainty import EstimatorConfig as TEstimatorConfig
+from diffusion_uncertainty_torch.uncertainty import Guidance as TGuidance
 from diffusion_uncertainty_torch.uncertainty import ensemble_forward as t_ensemble_forward
 from diffusion_uncertainty_torch.uncertainty import make_estimator as t_make_estimator
 from diffusion_uncertainty_torch.uncertainty.estimators import _renoise as t_renoise
@@ -44,7 +45,7 @@ def _close(a, b, rtol=RTOL):
 )
 def test_schedule_tables_match_jax(kind, kw):
     ref = make_schedule(kind, 1000, **kw)
-    out = t_make_schedule(kind, 1000, **kw)
+    out = t_make_schedule(kind, 1000, **kw, device="cpu")
     for name in ("betas", "alphas_cumprod", "final_alpha_cumprod"):
         _close(getattr(out, name).numpy(), getattr(ref, name))
     ts = np.array([-20, 0, 1, 499, 999])
@@ -69,7 +70,7 @@ def test_ddim_step_matches_jax(cfg, t, t_prev):
     rng = np.random.RandomState(t)
     x, eps, noise = (rng.randn(*SHAPE).astype(np.float32) for _ in range(3))
     ref = ddim_step(make_schedule(), jnp.asarray(x), jnp.asarray(eps), jnp.asarray(t), jnp.asarray(t_prev), DiffusionConfig(**cfg), noise=jnp.asarray(noise))
-    out = t_ddim_step(t_make_schedule(), torch.from_numpy(x), torch.from_numpy(eps), t, t_prev, TDiffusionConfig(**cfg), noise=torch.from_numpy(noise))
+    out = t_ddim_step(t_make_schedule(device="cpu"), torch.from_numpy(x), torch.from_numpy(eps), t, t_prev, TDiffusionConfig(**cfg), noise=torch.from_numpy(noise))
     for a, b in zip(out, ref):
         _close(a.numpy(), b)
 
@@ -81,7 +82,7 @@ def test_renoise_matches_jax(predict_next):
     j_state = StepState(jnp.asarray(x), jnp.asarray(x0), jnp.asarray(eps), jnp.asarray(prev), jnp.asarray(700), jnp.asarray(680))
     t_state = TStepState(*(torch.from_numpy(a) for a in (x, x0, eps, prev)), 700, 680)
     ref = _renoise(make_schedule(), j_state, jnp.asarray(noise), predict_next)
-    out = t_renoise(t_make_schedule(), t_state, torch.from_numpy(noise), predict_next)
+    out = t_renoise(t_make_schedule(device="cpu"), t_state, torch.from_numpy(noise), predict_next)
     _close(out.numpy(), ref)
 
 
@@ -92,7 +93,7 @@ def test_recompute_prev_matches_jax(cfg):
     j_state = StepState(jnp.asarray(x), jnp.asarray(x0), jnp.asarray(eps), jnp.asarray(prev), jnp.asarray(600), jnp.asarray(580))
     t_state = TStepState(*(torch.from_numpy(a) for a in (x, x0, eps, prev)), 600, 580)
     ref = _recompute_prev(make_schedule(), j_state, jnp.asarray(new_eps), DiffusionConfig(**cfg))
-    out = t_recompute_prev(t_make_schedule(), t_state, torch.from_numpy(new_eps), TDiffusionConfig(**cfg))
+    out = t_recompute_prev(t_make_schedule(device="cpu"), t_state, torch.from_numpy(new_eps), TDiffusionConfig(**cfg))
     _close(out.numpy(), ref)
 
 
@@ -126,8 +127,8 @@ def test_zigzag_ensemble_chunks_agree(chunk):
     state = _state()
     base = t_make_estimator(TEstimatorConfig(name="uncertainty_zigzag_centered", M=4, num_zigzag=3))
     est = t_make_estimator(TEstimatorConfig(name="uncertainty_zigzag_centered", M=4, num_zigzag=3, ensemble_chunk=chunk))
-    u_base = base(model_fn, t_make_schedule(), state, TorchNoise(5))
-    u = est(model_fn, t_make_schedule(), state, TorchNoise(5))
+    u_base = base(model_fn, t_make_schedule(device="cpu"), state, TorchNoise(5, device="cpu"))
+    u = est(model_fn, t_make_schedule(device="cpu"), state, TorchNoise(5, device="cpu"))
     torch.testing.assert_close(u, u_base, rtol=1e-6, atol=1e-7)
     assert u.shape == SHAPE and bool((u > 0).all())
 
@@ -136,16 +137,16 @@ def test_zigzag_collapse_runs_one_forward_per_member():
     calls = []
     model_fn = lambda x, t, _: calls.append(x.shape[0]) or 0.5 * x  # noqa: E731
     est = t_make_estimator(TEstimatorConfig(name="uncertainty_zigzag_centered", M=3, num_zigzag=4, zigzag_collapse=True))
-    est(model_fn, t_make_schedule(), _state(), TorchNoise(0))
+    est(model_fn, t_make_schedule(device="cpu"), _state(), TorchNoise(0, device="cpu"))
     assert calls == [3 * SHAPE[0]]
     calls.clear()
-    t_make_estimator(TEstimatorConfig(name="uncertainty_zigzag_centered", M=3, num_zigzag=4))(model_fn, t_make_schedule(), _state(), TorchNoise(0))
+    t_make_estimator(TEstimatorConfig(name="uncertainty_zigzag_centered", M=3, num_zigzag=4))(model_fn, t_make_schedule(device="cpu"), _state(), TorchNoise(0, device="cpu"))
     assert calls == [3 * SHAPE[0]] * 4
 
 
 def test_centered_zero_model_gives_eps_squared():
     state = _state(2)
-    u = t_make_estimator(TEstimatorConfig(name="uncertainty_centered", M=3))(lambda x, t, _: torch.zeros_like(x), t_make_schedule(), state, TorchNoise(1))
+    u = t_make_estimator(TEstimatorConfig(name="uncertainty_centered", M=3))(lambda x, t, _: torch.zeros_like(x), t_make_schedule(device="cpu"), state, TorchNoise(1, device="cpu"))
     torch.testing.assert_close(u, state.pred_epsilon**2)
 
 
@@ -168,14 +169,16 @@ def test_make_estimator_registry():
 
 
 def test_sampler_window_and_guidance_interface():
-    sched = t_make_schedule()
+    sched = t_make_schedule(device="cpu")
     est = t_make_estimator(TEstimatorConfig(name="uncertainty_centered", M=2))
     cfg = TSamplerConfig(num_inference_steps=20, after_step=5, num_steps_uc=4)
-    res = t_sample_ddim(lambda x, t, _: 0.1 * x, sched, torch.ones(SHAPE), TorchNoise(0), cfg, estimator=est, collect_intermediates=True)
+    res = t_sample_ddim(lambda x, t, _: 0.1 * x, sched, torch.ones(SHAPE), TorchNoise(0, device="cpu"), cfg, estimator=est, collect_intermediates=True)
     assert res.uncertainty.shape == res.pred_epsilon.shape == (4,) + SHAPE
     np.testing.assert_array_equal(res.window_timesteps, spaced_timesteps(1000, 20)[5:9])
     assert res.intermediates.shape == (20,) + SHAPE
-    plain = t_sample_ddim(lambda x, t, _: 0.1 * x, sched, torch.ones(SHAPE), TorchNoise(0), TSamplerConfig(num_inference_steps=20))
+    plain = t_sample_ddim(lambda x, t, _: 0.1 * x, sched, torch.ones(SHAPE), TorchNoise(0, device="cpu"), TSamplerConfig(num_inference_steps=20))
     assert plain.uncertainty is None and torch.equal(plain.sample, res.sample)
-    with pytest.raises(NotImplementedError):
-        t_sample_ddim(lambda x, t, _: x, sched, torch.ones(SHAPE), TorchNoise(0), cfg, guidance=object())
+    # a guidance takes the estimator's place in the window and sets x_{t-1}
+    guided = t_sample_ddim(lambda x, t, _: 0.1 * x, sched, torch.ones(SHAPE), TorchNoise(0, device="cpu"), cfg,
+                           guidance=TGuidance(lambda x: None, lambda m, s, st, n, aux: (st.prev_sample, torch.ones_like(st.sample), aux)))
+    assert torch.equal(guided.sample, plain.sample) and bool((guided.uncertainty == 1).all())

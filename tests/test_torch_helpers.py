@@ -5,9 +5,13 @@
   ``proj_out`` and ``conv_out``, which would make a parity test pass
   trivially). The port loads it directly; the JAX model gets it through
   ``convert_adm_unet``.
+* ``make_sd_unet_state_dict`` / ``make_vae_state_dict``: random diffusers /
+  CompVis-layout SD UNet and KL-VAE state dicts (norm scales around 1).
 * ``jax_sampler_noise`` walks the JAX key tree of ``sample_ddim`` with
   ``uncertainty_zigzag_centered`` and returns the Gaussian draws the JAX run
-  makes, in the port's draw order; ``ReplayNoise`` hands them to the port.
+  makes, in the port's draw order; ``jax_guidance_noise`` does the same for
+  the percentile guidance (and the text-to-image pipeline's initial
+  latents); ``ReplayNoise`` hands them to the port.
 """
 
 from __future__ import annotations
@@ -17,9 +21,12 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from diffusion_uncertainty_torch.models import SDUNet as TSDUNet
+from diffusion_uncertainty_torch.models import autoencoder_kl_state_dict_from_flax
+from diffusion_uncertainty_torch.models.layers import GroupNorm32 as TGroupNorm32
 from diffusion_uncertainty_torch.utils.rng import TorchNoise
 from diffusion_uncertainty_tpu.diffusion.schedule import uncertainty_window
-from diffusion_uncertainty_tpu.models import ADMUNetConfig
+from diffusion_uncertainty_tpu.models import ADMUNetConfig, AutoencoderKL
 from diffusion_uncertainty_tpu.models.convert import convert_adm_unet
 
 
@@ -107,6 +114,43 @@ def torch_state_dict(sd: dict) -> dict:
     return {k: torch.from_numpy(v) for k, v in sd.items()}
 
 
+def make_sd_unet_state_dict(tcfg, seed: int = 0, std: float = 0.05) -> dict:
+    """{key: float32 ndarray} in the diffusers ``UNet2DConditionModel``
+    layout of the port's ``SDUNet`` (keys and shapes read on the meta
+    device); GroupNorm / LayerNorm scales around 1."""
+    with torch.device("meta"):
+        model = TSDUNet(tcfg)
+    norms = {n for n, m in model.named_modules() if isinstance(m, (torch.nn.LayerNorm, TGroupNorm32))}
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for key, v in model.state_dict().items():
+        owner, _, leaf = key.rpartition(".")
+        if owner in norms and leaf == "weight":
+            sd[key] = (1.0 + rng.randn(*v.shape) * 0.1).astype(np.float32)
+        else:
+            sd[key] = (rng.randn(*v.shape) * std).astype(np.float32)
+    return sd
+
+
+def make_vae_state_dict(jcfg, seed: int = 0, std: float = 0.05) -> dict:
+    """A full CompVis KL-VAE state dict (encoder and decoder): random JAX
+    ``AutoencoderKL`` parameters (norm scales around 1) carried across by
+    ``autoencoder_kl_state_dict_from_flax``."""
+    rng = np.random.RandomState(seed)
+    shapes = jax.eval_shape(
+        lambda k: AutoencoderKL(jcfg).init(k, jnp.zeros((1, 16, 16, 3)), "init", k), jax.random.key(0)
+    )
+
+    def fill(path, s):
+        name = jax.tree_util.keystr(path)
+        if "norm" in name and "scale" in name:
+            return (1.0 + rng.randn(*s.shape) * 0.1).astype(np.float32)
+        return (rng.randn(*s.shape) * std).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(fill, shapes)
+    return {k: v.numpy() for k, v in autoencoder_kl_state_dict_from_flax(params, jcfg).items()}
+
+
 def jax_sampler_noise(key, shape, num_inference_steps, after_step, num_steps_uc, M, num_zigzag, start_step=0):
     """The standard-normal draws of the JAX ``sample_ddim`` (eta 0) with
     ``uncertainty_zigzag_centered``: per window step, member by member, zig by
@@ -120,6 +164,27 @@ def jax_sampler_noise(key, shape, num_inference_steps, after_step, num_steps_uc,
                 for k_j in jax.random.split(k_m, num_zigzag):
                     k_n, _ = jax.random.split(k_j)
                     draws.append(np.asarray(jax.random.normal(k_n, shape, jnp.float32)))
+        else:
+            key, _ = jax.random.split(key)
+    return draws
+
+
+def jax_guidance_noise(key, shape, num_inference_steps, after_step, num_steps_uc, M, latents_shape=None):
+    """The standard-normal draws of the JAX ``sample_ddim`` (eta 0) with a
+    percentile guidance: one [M, *shape] draw per window step
+    (``sampler.py:158``, ``estimators.py:104-108``). With ``latents_shape``
+    the key is the text-to-image pipeline's, whose first draw is the initial
+    latents (``text_to_image.py:123-127``)."""
+    draws = []
+    if latents_shape is not None:
+        k_init, key = jax.random.split(key)
+        draws.append(np.asarray(jax.random.normal(k_init, latents_shape, jnp.float32)))
+    w0, w1 = uncertainty_window(after_step, num_steps_uc, num_inference_steps)
+    for i in range(num_inference_steps):
+        if w0 <= i < w1:
+            key, _, k_est = jax.random.split(key, 3)
+            k_noise, _ = jax.random.split(k_est)
+            draws.append(np.asarray(jax.random.normal(k_noise, (M,) + tuple(shape), jnp.float32)))
         else:
             key, _ = jax.random.split(key)
     return draws
@@ -169,6 +234,6 @@ def test_replay_noise_replays_in_order_and_checks_shape():
 
 
 def test_torch_noise_is_seeded():
-    a = TorchNoise(3).normal((4, 5))
-    b = TorchNoise(3).normal((4, 5))
+    a = TorchNoise(3, device="cpu").normal((4, 5))
+    b = TorchNoise(3, device="cpu").normal((4, 5))
     assert torch.equal(a, b) and a.dtype == torch.float32

@@ -66,7 +66,7 @@ def test_zigzag_sampling_matches_jax(setup, chunk):
     t_est = t_make_estimator(TEstimatorConfig(name="uncertainty_zigzag_centered", M=M, num_zigzag=ZIG, ensemble_chunk=chunk))
     tcfg = TSamplerConfig(num_inference_steps=STEPS, after_step=AFTER, num_steps_uc=N_UC, start_step=START)
     out = t_sample_ddim(
-        lambda xx, tt, _: tmodel(xx, tt, yt), t_make_schedule("linear", 1000), torch.from_numpy(x_T), noise, tcfg, estimator=t_est
+        lambda xx, tt, _: tmodel(xx, tt, yt), t_make_schedule("linear", 1000, device="cpu"), torch.from_numpy(x_T), noise, tcfg, estimator=t_est
     )
     assert noise.used == len(draws)
 
