@@ -10,23 +10,30 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    seconds and the card's name and power limit.
 2. Hold every kernel against its plain PyTorch version on the card, at every
    shape the full-width models give it, recorded from the forwards of phases
-   3 and 5: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the CFG
-   batch) and the SD VAE decoder at batch 1 (64x64 latent), in bfloat16 and
-   float32. Tolerances: interleave bit-exact; avg-pool within 1 bf16 ulp;
+   3, 5 and 7: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the CFG
+   batch), the SD VAE decoder at batch 1 (64x64 latent) and the CIFAR-10 UNet
+   at batch 128 (the CLI batch), in bfloat16 and float32. Tolerances:
+   interleave bit-exact; avg-pool within 1 bf16 ulp;
    GroupNorm |kernel - plain| <= 2e-2 + 2^-7·|plain| in bf16 (the second term
    is one output rounding step where |y| > 2) and <= 1e-4 in f32; attention,
    scaled to the output (whose size falls as 1/sqrt(S_kv) for random inputs),
    max |kernel - plain| <= 2^-6·max|plain| (2 to 4 bf16 ulps of the largest
    output) and relative L2 <= 5e-3 in bf16, max |kernel - plain| <=
-   1e-4·max|plain| in f32. bfloat16 shapes are timed (CUDA events, median
+   1e-4·max|plain| in f32; Winograd conv (with and without the residual), in
+   bf16 max |kernel - plain| <= 2 bf16 ulps of max|plain| and relative L2 <=
+   5e-3, in f32 relative L2 <= 1e-5 (the same bf16 rounding points; only
+   the float32 summation order differs). bfloat16 shapes are timed (CUDA events, median
    after warm-up): the kernel, its plain version, the one PyTorch call that
    computes the same function (``F.scaled_dot_product_attention``,
-   ``F.avg_pool2d``, a stack/permute/reshape copy for the interleave, and
+   ``F.avg_pool2d``, a stack/permute/reshape copy for the interleave,
+   ``F.conv2d`` on channels_last (+ the residual add) for the Winograd conv, and
    ``F.group_norm`` (+``F.silu``) for the GN pair: that one call covers both
    ``gn_stats`` and ``gn_apply``, so it stands on both kernels' lines and the
    pair is timed back to back against it), and the bound: the larger of bytes
    moved (each input read once, each output written once) / 3.35 TB/s and
-   operations / 989 TFLOP/s (dense bf16).
+   operations / 989 TFLOP/s (dense bf16; the Winograd conv counts its 2 x 16
+   x tiles x C x K multiply-adds). The Winograd kernel is also timed, for
+   information, at the ADM-128 ResBlock conv shapes (batch 8) it can serve.
 3. The full-width ImageNet-128 ADM forward (421M parameters, random bf16
    weights N(0, 0.02), batch 2) on the card against the same weights in
    float32 on the CPU at batch 1: relative L2 error of image 0 <= 2e-2.
@@ -48,9 +55,24 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    percentile guidance on steps [0, 20) at 0.95 with M=5, gradient branch (lr
    0.99), one prompt; then once more with the posterior branch. Images
    [1, 512, 512, 3] finite, uncertainty [1, 20, 64, 64, 4] with positive mean.
+7. The full-width CIFAR-10 UNet (``UNet2DConfig.ddpm_cifar10(dropout=0.1)``,
+   35.7M parameters, seeded random bf16 weights from
+   ``instantiate_model_scheduler(random_init=True)``, t=500, batch 128) with
+   ``winograd=True`` against the same weights in float32 on the CPU with the
+   direct conv at batch 1 (rel L2 <= 2e-2), and against the same card forward
+   with ``winograd=False`` (printed); exactly 44 Winograd launches per
+   forward, and 51 per GN kernel, 6 attention, 3 interleave.
+8. CIFAR-10 main path through the dataset CLI's functions:
+   ``instantiate_model_scheduler("cifar10", dropout=0.1, random_init=True)``
+   and ``generate_uncertainty_dataset`` with ``mc_dropout``, M=5, 50 DDIM
+   steps, window [40, 50), bf16, batch 128, on the port's starting points,
+   with ``DU_TPU_WINOGRAD=1`` and then unset: images/s of each, uncertainty
+   [128, 10, 32, 32, 3] finite with positive mean, Winograd launches 44 per
+   forward (60 forwards: 50 trajectory steps and one folded M=5 ensemble
+   forward per window step) with the kernel on and none with it off.
 
-Every forward of phases 3 and 5 must launch each kernel of its model; each
-main path (phase 4, and each run of phase 6) sets the launch counters to 0
+Every forward of phases 3, 5 and 7 must launch each kernel of its model; each
+main path (phase 4, each run of phase 6, each run of phase 8) sets the launch counters to 0
 just before and reads them just after, and fails if a kernel of its path
 never launched. The last two lines are the kernels JSON (``launches``: the
 sum over the main-path runs) and the device JSON. ``--details`` writes every
@@ -66,14 +88,16 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
 ADM_BATCH = 8  # images of the ADM main-path run (phase 4)
+CIFAR_BATCH = 128  # images of the CIFAR-10 main-path run (phase 8), the CLI's batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 # the batch each model's shapes are checked at; the first is the main path's
-CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,)}
+CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,)}
 SRC = "diffusion_uncertainty_torch/kernels/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "gn_stats": (SRC + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:454"),
@@ -82,9 +106,14 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "attention_long": (SRC + "attention.cu", "diffusion_uncertainty_tpu/ops/flash_attention.py:134"),
     "avg_pool_2x2": (SRC + "avgpool.cu", "diffusion_uncertainty_tpu/ops/avgpool.py:30"),
     "interleave_2x": (SRC + "interleave.cu", "diffusion_uncertainty_tpu/ops/fused_upsample.py:110"),
+    "winograd": (SRC + "winograd.cu", "diffusion_uncertainty_tpu/ops/winograd_conv.py:154"),
 }
 ADM_PATH = ("gn_stats", "gn_apply", "attention", "avg_pool_2x2", "interleave_2x")
 SD_PATH = ("gn_stats", "gn_apply", "attention", "attention_long", "interleave_2x")
+CIFAR_PATH = ("gn_stats", "gn_apply", "attention", "interleave_2x", "winograd")
+# launches of one CIFAR-10 UNet forward: 22 ResnetBlock2Ds x 2 convs; 2 GNs per
+# block, 6 attention norms and the output norm; 6 attentions; 3 upsamplers
+CIFAR_FORWARD = {"winograd": 44, "gn_stats": 51, "gn_apply": 51, "attention": 6, "interleave_2x": 3}
 
 
 def fail(msg: str) -> None:
@@ -196,13 +225,16 @@ def signature(name, args):
         return (s, k.shape[1], h, d, layout, kv_len)
     if name == "avg_pool_2x2":
         return tuple(args[0].shape[1:])
+    if name == "winograd_conv":
+        res = args[3] if len(args) > 3 else None
+        return tuple(args[0].shape[1:]) + (args[2].shape[0], res is not None)
     return tuple(args[0].shape[1:]) + (args[0] is args[1],)
 
 
 def shape_sets(calls):
     """Recorded calls -> {kernel family: sorted distinct signatures}; a GN
     signature pairs a gn_stats call with the gn_apply call after it."""
-    sets = {"gn": set(), "attention": set(), "avg_pool_2x2": set(), "interleave_2x": set()}
+    sets = {"gn": set(), "attention": set(), "avg_pool_2x2": set(), "interleave_2x": set(), "winograd_conv": set()}
     pending = None
     for name, sig in calls:
         if name == "gn_stats":
@@ -219,6 +251,7 @@ def main() -> None:
     ap.add_argument("--details", help="write every check and time as JSON to this path")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -230,8 +263,14 @@ def main() -> None:
     from diffusion_uncertainty_torch.kernels import avgpool as kpool
     from diffusion_uncertainty_torch.kernels import groupnorm as kgn
     from diffusion_uncertainty_torch.kernels import interleave as kilv
-    from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, AutoencoderKL, SDUNet
+    from diffusion_uncertainty_torch.kernels import winograd as kwino
+    from diffusion_uncertainty_torch.factory import instantiate_model_scheduler
+    from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, AutoencoderKL, SDUNet, UNet2D
+    from diffusion_uncertainty_torch.models.adm_unet import ResBlock
     from diffusion_uncertainty_torch.models.layers import split_qkv
+    from diffusion_uncertainty_torch.sampling import generate_uncertainty_dataset
+    from diffusion_uncertainty_torch.scripts import generate_dataset_score_uncertainty as dataset_cli
+    from diffusion_uncertainty_torch.scripts import generate_starting_points
     from diffusion_uncertainty_torch.ops.groupnorm import _reference_impl
     from diffusion_uncertainty_torch.pipelines import T2IPipelineConfig, TextToImageUncertaintyPipeline, pseudo_text_embeddings
     from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config as T2IConfig
@@ -239,10 +278,12 @@ def main() -> None:
     from diffusion_uncertainty_torch.uncertainty import EstimatorConfig, make_estimator
     from diffusion_uncertainty_torch.utils import TorchNoise
 
-    wrapper_mods = {"gn_stats": kgn, "gn_apply": kgn, "attention": katt, "avg_pool_2x2": kpool, "interleave_2x": kilv}
+    wrapper_mods = {"gn_stats": kgn, "gn_apply": kgn, "attention": katt, "avg_pool_2x2": kpool, "interleave_2x": kilv,
+                    "winograd_conv": kwino}
     plains = {
         "gn_stats": kgn.gn_stats_plain, "gn_apply": kgn.gn_apply_plain, "attention": katt.attention_plain,
         "avg_pool_2x2": kpool.avg_pool_2x2_plain, "interleave_2x": kilv.interleave_2x_plain,
+        "winograd_conv": kwino.winograd_conv_plain,
     }
     dev = torch.device("cuda")
     card = card_line()
@@ -304,8 +345,26 @@ def main() -> None:
         torch.cuda.synchronize()
     vae_counts = kernels.launch_counts()
 
+    # the CIFAR-10 UNet with its Winograd route on, and the same seeded weights
+    # with it off
+    cifar = instantiate_model_scheduler("cifar10", dropout=0.1, random_init=True, device=dev, winograd=True)
+    cifar_direct = instantiate_model_scheduler("cifar10", dropout=0.1, random_init=True, device=dev)
+    n_cifar = sum(p.numel() for p in cifar.model.parameters())
+    xc = torch.randn(CIFAR_BATCH, 32, 32, 3, generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        cifar.model(xc[:2], 500)  # the weight transforms, outside the timed call
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad(), Recorder(wrapper_mods) as rec_cifar:
+        t0 = time.perf_counter()
+        out_cifar = cifar.model(xc, 500)
+        torch.cuda.synchronize()
+        cifar_fwd_s = time.perf_counter() - t0
+    cifar_counts = kernels.launch_counts()
+
     # ---- phase 2: every kernel against its plain version -----------------
-    sets = {"adm": shape_sets(rec_adm.sigs), "sd": shape_sets(rec_sd.sigs), "vae": shape_sets(rec_vae.sigs)}
+    sets = {"adm": shape_sets(rec_adm.sigs), "sd": shape_sets(rec_sd.sigs), "vae": shape_sets(rec_vae.sigs),
+            "cifar": shape_sets(rec_cifar.sigs)}
     for src, ss in sets.items():
         print(f"[2] {src} shapes: " + ", ".join(f"{k} {len(v)}" for k, v in ss.items()), flush=True)
     names = tuple(KERNELS)
@@ -432,6 +491,47 @@ def main() -> None:
         note("interleave_2x", 0.0, src, batch, torch.bfloat16, [batch, h, w, c, same], "exact", times,
              (1 if same else 4) * n_in + 4 * n_in, 0.0)
 
+    def winograd_checks(src, batch, dtype, h, w, c, k, has_res, timed=True, compare=True):
+        x = rnd(batch, h, w, c, dtype=dtype)
+        wt = rnd(k, c, 3, 3, dtype=dtype, scale=0.05)
+        b = rnd(k, dtype=dtype)
+        res = rnd(batch, h, w, k, dtype=dtype) if has_res else None
+        u, b32 = kwino.weight_transform(wt), b.float()
+        got = kwino.winograd_conv(x, u, b32, res)
+        shape = [batch, h, w, c, k, has_res]
+        extra = {}
+        e, tol = 0.0, None
+        if compare:
+            ref = kwino.winograd_conv_plain(x, u, b32, res).float()
+            e = float((got.float() - ref).abs().max())
+            ref_max = float(ref.abs().max())
+            rel = rel_l2(got, ref)
+            bf16 = dtype == torch.bfloat16
+            tol = 2 * float(bf16_ulp(torch.tensor(ref_max))) if bf16 else None  # f32: rel L2 only
+            if not ((tol is None or e <= tol) and rel <= (5e-3 if bf16 else 1e-5)):
+                fail(f"winograd disagrees at {(src, *shape, dtype)}: max err {e} (limit {tol}), rel L2 {rel}")
+            extra = {"plain_max": ref_max, "rel_l2": rel}
+        times = None
+        if timed:
+            xcl, wcl = x.permute(0, 3, 1, 2), wt.contiguous(memory_format=torch.channels_last)
+            rcl = res.permute(0, 3, 1, 2) if has_res else None
+
+            def library():
+                y = F.conv2d(xcl, wcl, b, padding=1)
+                return y if rcl is None else y.add_(rcl)
+
+            times = {"ms": device_ms(lambda: kwino.winograd_conv(x, u, b32, res)),
+                     "plain_ms": device_ms(lambda: kwino.winograd_conv_plain(x, u, b32, res)) if compare else float("nan"),
+                     "library_ms": device_ms(library)}
+        es = x.element_size()
+        n_bytes = (x.numel() + batch * h * w * k * (2 if has_res else 1)) * es + u.numel() * 2 + k * 4
+        flops = 2.0 * 16 * (batch * (h // 2) * (w // 2)) * c * k
+        if not compare:  # information only: a row of its own, outside the checks and the sums
+            b_ms, o_ms = bound_ms(n_bytes, flops)
+            return {"kernel": "winograd", "model": src, "batch": batch, "shape": shape, **times,
+                    "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms)}
+        return note("winograd", e, src, batch, dtype, shape, tol, times, n_bytes, flops, **extra)
+
     for src, ss in sets.items():
         for batch in CHECK_BATCHES[src]:
             for dtype in (torch.bfloat16, torch.float32):
@@ -439,6 +539,8 @@ def main() -> None:
                     gn_checks(src, batch, dtype, *sig)
                 for sig in ss["attention"]:
                     attention_checks(src, batch, dtype, *sig)
+                for sig in ss["winograd_conv"]:
+                    winograd_checks(src, batch, dtype, *sig, timed=dtype == torch.bfloat16)
             for sig in ss["avg_pool_2x2"]:
                 pool_checks(src, batch, *sig)
             for sig in ss["interleave_2x"]:
@@ -451,8 +553,9 @@ def main() -> None:
                   flush=True)
     for r in rows:
         if "rel_l2" in r:
-            print(f"    {r['kernel']:<14} {r['model']:<4} {r['dtype']:<8} {str(r['shape']):<40} max|plain| {r['plain_max']:.4g}  "
-                  f"err {r['max_abs_err']:.3g} (limit {r['tol']:.3g})  rel L2 {r['rel_l2']:.3e}", flush=True)
+            limit = "rel L2 only" if r["tol"] is None else f"{r['tol']:.3g}"
+            print(f"    {r['kernel']:<14} {r['model']:<5} {r['dtype']:<8} {str(r['shape']):<40} max|plain| {r['plain_max']:.4g}  "
+                  f"err {r['max_abs_err']:.3g} (limit {limit})  rel L2 {r['rel_l2']:.3e}", flush=True)
     print("[2] sums over each model's distinct shapes at its main-path batch, bf16, ms (the GN library call, "
           "F.group_norm(+silu), covers the pair; 'gn pair' times gn_stats + gn_apply back to back):", flush=True)
     for (what, src), t in sums.items():
@@ -460,6 +563,30 @@ def main() -> None:
         print(f"    {what:<14} {src:<4} {t['shapes']:>2} shapes  card {t['ms']:.4f}  plain {t['plain_ms']:.4f}  "
               f"library {t['library_ms']:.4f}  bound {t['bound_ms']:.4f} ({by})", flush=True)
     print(f"[2] kernels agree with their plain versions at every shape: max errors {err}", flush=True)
+
+    # information: the Winograd kernel at the ADM-128 ResBlock conv shapes it
+    # serves (the model's ResBlock convs switched to the Winograd route for one
+    # recording forward at the main-path batch); not part of the sums
+    resblock_convs = [c for rb in model.modules() if isinstance(rb, ResBlock)
+                      for c in (rb.in_layers[2], rb.out_layers[3]) if not c.up2]
+    for c in resblock_convs:
+        c.winograd = True
+    with torch.no_grad(), Recorder({"winograd_conv": kwino}) as rec_adm_wino:
+        model(torch.randn(ADM_BATCH, 128, 128, 3, generator=gen, device=dev).to(torch.bfloat16), 500,
+              torch.randint(0, cfg.num_classes, (ADM_BATCH,), generator=gen, device=dev))
+    for c in resblock_convs:
+        c.winograd = False
+        c._wino_cache.clear()
+    adm_wino = [winograd_checks("adm", ADM_BATCH, torch.bfloat16, *sig, compare=False)
+                for sig in shape_sets(rec_adm_wino.sigs)["winograd_conv"]]
+    adm_wino_sum = {key: sum(r[key] for r in adm_wino) for key in ("ms", "library_ms", "bound_ms")}
+    for r in adm_wino:
+        print(f"    winograd (information) adm {str(r['shape']):<36} {r['ms']:.4f} ms  library {r['library_ms']:.4f}  "
+              f"bound {r['bound_ms']:.4f}", flush=True)
+    print(f"[2] winograd at the {len(adm_wino)} ADM-128 ResBlock conv shapes, batch {ADM_BATCH} (information, bf16): card "
+          f"{adm_wino_sum['ms']:.4f} ms  cuDNN {adm_wino_sum['library_ms']:.4f}  bound {adm_wino_sum['bound_ms']:.4f}",
+          flush=True)
+    details["winograd_adm_information"] = adm_wino
 
     # ---- phase 3: full-width ADM forward against float32 on the CPU ------
     check_counts(adm_fwd_counts, ADM_PATH, "ADM forward")
@@ -610,14 +737,100 @@ def main() -> None:
               f"{s_img:.2f} s per image on {card} (information, not a claim); uncertainty mean {um:.4e}", flush=True)
         print(f"[6] kernels {json.dumps(counts)}", flush=True)
         sd_runs[tag] = {"s_per_image": s_img, "launches": counts, "uncertainty_mean": um}
-    details.update(sd_main_path=sd_runs, checks=rows, sums={f"{w} {src}": t for (w, src), t in sums.items()})
+    details.update(sd_main_path=sd_runs)
+
+    # ---- phase 7: full-width CIFAR-10 UNet forward -----------------------
+    for name, want in CIFAR_FORWARD.items():
+        if cifar_counts[name] != want:
+            fail(f"CIFAR-10 forward: {cifar_counts[name]} {name} launches, want {want}")
+    if not bool(torch.isfinite(out_cifar).all()):
+        fail("CIFAR-10 forward: non-finite output on the card")
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        cpu_cifar = UNet2D(cifar_direct.model.cfg)
+    cpu_cifar.load_state_dict({k: v.float().cpu() for k, v in cifar.model.state_dict().items()}, assign=True)
+    with torch.no_grad():
+        ref = cpu_cifar.eval()(xc[:1].float().cpu(), 500)
+        direct = cifar_direct.model(xc, 500)
+    cifar_cpu_s = time.perf_counter() - t0
+    del cpu_cifar
+    cifar_rel = rel_l2(out_cifar[:1], ref)
+    cifar_vs_direct = rel_l2(out_cifar, direct)
+    direct_rel = rel_l2(direct[:1], ref)
+    print(f"[7] CIFAR-10 UNet forward ({n_cifar / 1e6:.1f}M params, bf16, Winograd on, batch {CIFAR_BATCH}): "
+          f"{cifar_fwd_s:.3f} s first call; image 0 vs float32 CPU with the direct conv ({cifar_cpu_s:.1f} s): rel L2 "
+          f"{cifar_rel:.3e} (limit 2e-2); vs the same card forward with winograd=False: rel L2 {cifar_vs_direct:.3e}; "
+          f"winograd=False vs float32 CPU: {direct_rel:.3e}", flush=True)
+    print(f"[7] kernels {json.dumps(cifar_counts)}", flush=True)
+    if not cifar_rel <= 2e-2:
+        fail(f"CIFAR-10 forward: relative L2 error {cifar_rel} > 2e-2")
+    details.update(cifar_params=n_cifar, cifar_forward_rel_l2=cifar_rel, cifar_vs_direct_rel_l2=cifar_vs_direct,
+                   cifar_direct_rel_l2=direct_rel, cifar_forward_launches=cifar_counts)
+    del cifar, cifar_direct, out_cifar, direct
+
+    # ---- phase 8: the CIFAR-10 main path through the dataset CLI's functions
+    n_fwd = 50 + 10  # trajectory steps, plus one folded M=5 ensemble forward per window step
+    cifar_runs = {}
+    saved_env = {k: os.environ.get(k) for k in ("DIFFUSION_UNCERTAINTY_ROOT", "DU_TPU_WINOGRAD")}
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = root
+        generate_starting_points.main(["--datasets", "cifar10", "--num-samples", str(CIFAR_BATCH), "--extra-samples", "0"])
+        x_t, _ = dataset_cli.load_starting_points("cifar10", 0, CIFAR_BATCH)
+        for flag in ("1", None):
+            if flag is None:
+                os.environ.pop("DU_TPU_WINOGRAD", None)
+            else:
+                os.environ["DU_TPU_WINOGRAD"] = flag
+            winograd = os.environ.get("DU_TPU_WINOGRAD", "0") == "1"  # as the CLI reads it
+            tag = "winograd" if winograd else "direct"
+            bundle = instantiate_model_scheduler("cifar10", dropout=0.1, random_init=True, device=dev, winograd=winograd)
+            apply_fn, est_apply = dataset_cli.select_apply_fn(bundle, "mc_dropout")
+            with torch.no_grad():  # warm-up at the run's two batch sizes (weight transforms, cuDNN plans)
+                xw = torch.from_numpy(x_t).to(dev)
+                apply_fn(xw, 999, None, None)
+                est_apply(xw.repeat(5, 1, 1, 1), 999, None, TorchNoise(SEED, dev))
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = generate_uncertainty_dataset(
+                apply_fn, bundle.schedule, SamplerConfig(num_inference_steps=50, after_step=40, num_steps_uc=10),
+                x_t, None, CIFAR_BATCH, seed=SEED, estimator=make_estimator(EstimatorConfig(name="mc_dropout", M=5)),
+                estimator_apply_fn=est_apply,
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            want = {name: n * n_fwd for name, n in CIFAR_FORWARD.items()}
+            want["winograd"] = want["winograd"] if winograd else 0
+            print(f"[8] kernels ({tag}) {json.dumps(counts)}; expected {json.dumps(want)}", flush=True)
+            if any(counts[name] != n for name, n in want.items()):
+                fail(f"CIFAR-10 main path ({tag}): launches {counts}, expected {want}")
+            u = res.uncertainty
+            if tuple(u.shape) != (CIFAR_BATCH, 10, 32, 32, 3) or not bool(np.isfinite(u).all()):
+                fail(f"CIFAR-10 main path ({tag}): uncertainty {u.shape}, finite {bool(np.isfinite(u).all())}")
+            um = float(u.mean())
+            if not um > 0:
+                fail(f"CIFAR-10 main path ({tag}): uncertainty mean {um}")
+            ips = CIFAR_BATCH / wall
+            print(f"[8] CIFAR-10 main path ({tag}): mc_dropout M=5, 50 DDIM steps, window [40, 50), bf16, batch "
+                  f"{CIFAR_BATCH}: {wall:.2f} s, {ips:.2f} images/s on {card} (information, not a claim); "
+                  f"uncertainty mean {um:.4e}", flush=True)
+            cifar_runs[tag] = {"s": wall, "images_per_s": ips, "launches": counts, "uncertainty_mean": um}
+            del bundle, res
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    details.update(cifar_main_path=cifar_runs, checks=rows, sums={f"{w} {src}": t for (w, src), t in sums.items()})
 
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
             json.dump(details, f, indent=1, default=str)
 
-    launches = {k: adm_launches[k] + sum(r["launches"][k] for r in sd_runs.values()) for k in names}
+    launches = {k: adm_launches[k] + sum(r["launches"][k] for r in (*sd_runs.values(), *cifar_runs.values()))
+                for k in names}
     entries = []
     for k, (src, replaces) in KERNELS.items():
         t = {key: sum(v[key] for (w, _), v in sums.items() if w == k)

@@ -8,8 +8,11 @@ sample's device, so the loop never reads back to the host.
 Model function contract:
     model_fn(x, t, noise_or_None) -> epsilon-like output (same shape as x)
 ``t`` is the train-timestep value as a Python int. The third argument is a
-noise source for stochastic models (MC dropout, activation noise) or None;
-on this path every forward is deterministic and receives None.
+noise source for stochastic models (MC dropout, activation noise) or None.
+The trajectory forward always receives None, so it is deterministic; only
+the estimator's or the guidance's forwards may receive the noise source
+(``mc_dropout`` hands it to ``estimator_model_fn``, the JAX CLI's
+``select_apply_fn`` split).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ One module per kernel: the ctypes wrapper and its plain PyTorch version
 ``csrc/*.cu`` with ``nvcc`` at first use.
 """
 
-from . import attention, avgpool, groupnorm, interleave  # noqa: F401
+from . import attention, avgpool, groupnorm, interleave, winograd  # noqa: F401
 from ._build import COUNTERS, SOURCES, build  # noqa: F401
 from ._build import LAUNCHES as _LAUNCHES
 

@@ -29,7 +29,7 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("groupnorm", "attention", "avgpool", "interleave")
+SOURCES = ("groupnorm", "attention", "avgpool", "interleave", "winograd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 # launch counters: each wrapper adds one to its name where it launches its
 # kernel, and nowhere else (``attention_long``: attention over more than 2048
 # keys, the Pallas flash ``_kernel``'s regime)
-COUNTERS = ("gn_stats", "gn_apply", "attention", "attention_long", "avg_pool_2x2", "interleave_2x")
+COUNTERS = ("gn_stats", "gn_apply", "attention", "attention_long", "avg_pool_2x2", "interleave_2x", "winograd")
 LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}

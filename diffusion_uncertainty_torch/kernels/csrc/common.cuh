@@ -56,6 +56,20 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float* in) {
   }
 }
 
+// c += A B on the tensor cores: mma.sync m16n8k16, bf16 operands, float32
+// accumulators. Fragments (g = lane / 4, t = lane % 4): a0/a1 = A rows g / g+8,
+// cols 2t..2t+1; a2/a3 the same rows, cols 2t+8..2t+9; b0/b1 = B rows
+// (the k index) 2t..2t+1 / 2t+8..2t+9, col g; c[0..1] = C row g, cols
+// 2t..2t+1, c[2..3] row g+8.
+__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

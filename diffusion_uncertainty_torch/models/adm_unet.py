@@ -9,10 +9,19 @@ same dict from the JAX package's parameters. The forward follows the JAX
 model: fused upsample+conv in the up ResBlocks, concat-free split-skip
 decoder blocks, float32 output.
 
+MC dropout: a forward given a noise source (``forward(..., noise=...)``)
+applies dropout (rate ``ADMUNetConfig.dropout``) after each ResBlock's output
+GroupNorm+SiLU, as the JAX model with ``deterministic=False``; without one
+it is deterministic. ``winograd=True`` routes the ResBlocks' 3×3 convs
+(``in_conv`` unless it upsamples, ``out_conv``, and both partials of the
+split-skip ``in_conv``, the second fusing the first as its residual, as
+``_SplitInputConv``) through the Winograd kernel op where the shape allows;
+``conv_in``, ``conv_out`` and the up/down-sampling convs never take it, as
+in the JAX model.
+
 Not ported yet: the activation-noise and gradient taps (used by the
-``uncertainty`` and ``flip_grad`` estimators), dropout and its rate (the
-``mc_dropout`` estimator; this path samples in eval mode), and
-``ADMClassifier`` (classifier guidance).
+``uncertainty`` and ``flip_grad`` estimators) and ``ADMClassifier``
+(classifier guidance).
 """
 
 from __future__ import annotations
@@ -26,7 +35,16 @@ import torch.nn.functional as F
 
 from ..ops.fused_upsample import conv2d_nhwc, nearest_upsample_2x
 from ..ops.groupnorm import group_norm_silu
-from .layers import AttentionBlock, Conv2d, Conv3x3, GroupNorm32, avg_pool_2x, nearest_upsample, timestep_embedding
+from .layers import (
+    AttentionBlock,
+    Conv2d,
+    Conv3x3,
+    GroupNorm32,
+    avg_pool_2x,
+    dropout,
+    nearest_upsample,
+    timestep_embedding,
+)
 
 __all__ = ["ADMUNetConfig", "ADMUNet", "ResBlock"]
 
@@ -39,6 +57,7 @@ class ADMUNetConfig:
     out_channels: int = 6
     num_res_blocks: int = 3
     attention_resolutions: Tuple[int, ...] = (2, 4, 8)  # downsample factors
+    dropout: float = 0.1  # applied only in a forward given a noise source
     channel_mult: Tuple[int, ...] = (1, 2, 3, 4)
     num_classes: Optional[int] = 1000
     num_heads: int = 4
@@ -49,6 +68,8 @@ class ADMUNetConfig:
     conv_resample: bool = True
     # the reference's qkv weight order: legacy (per head) or qkv-major
     use_new_attention_order: bool = False
+    # route the ResBlock 3x3 convs through the Winograd kernel op
+    winograd: bool = False
 
     @staticmethod
     def imagenet128() -> "ADMUNetConfig":
@@ -58,6 +79,7 @@ class ADMUNetConfig:
             model_channels=256,
             num_res_blocks=2,
             attention_resolutions=(4, 8, 16),
+            dropout=0.0,
             channel_mult=(1, 1, 2, 3, 4),
             num_heads=4,
             num_head_channels=-1,
@@ -65,13 +87,14 @@ class ADMUNetConfig:
         )
 
     @staticmethod
-    def imagenet64() -> "ADMUNetConfig":
+    def imagenet64(dropout: float = 0.1) -> "ADMUNetConfig":
         """guided-diffusion ImageNet-64."""
         return ADMUNetConfig(
             image_size=64,
             model_channels=192,
             num_res_blocks=3,
             attention_resolutions=(2, 4, 8),
+            dropout=dropout,
             channel_mult=(1, 2, 3, 4),
             num_heads=4,
             num_head_channels=64,
@@ -96,8 +119,13 @@ class ADMUNetConfig:
 
 def _split_input_conv(conv: Conv2d, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """conv over the channel concat of a and b without forming the concat:
-    conv(a, W[:, :C1]) + conv(b, W[:, C1:]) + bias."""
+    conv(a, W[:, :C1]) + conv(b, W[:, C1:]) + bias. A Winograd ``Conv3x3``
+    runs both partials through its route, the second with the first as its
+    fused residual."""
     c1 = a.shape[-1]
+    if isinstance(conv, Conv3x3) and conv.winograd:
+        ya = conv.partial(a, 0, c1, torch.zeros_like(conv.bias))
+        return conv.partial(b, c1, None, conv.bias, res=ya)
     w = conv.weight
     pad = conv.padding[0]
     ya = conv2d_nhwc(a, w[:, :c1], None, padding=pad)
@@ -112,17 +140,19 @@ class ResBlock(nn.Module):
     order); otherwise it concatenates."""
 
     def __init__(self, c_in: int, c_out: int, emb_dim: int, use_scale_shift_norm: bool = True,
-                 up: bool = False, down: bool = False):
+                 up: bool = False, down: bool = False, dropout: float = 0.0, winograd: bool = False):
         super().__init__()
         self.c_in, self.c_out = c_in, c_out
         self.up, self.down = up, down
         self.use_scale_shift_norm = use_scale_shift_norm
-        self.in_layers = nn.ModuleList([GroupNorm32(c_in), nn.SiLU(), Conv3x3(c_in, c_out, up2=up)])
+        self.in_layers = nn.ModuleList([GroupNorm32(c_in), nn.SiLU(), Conv3x3(c_in, c_out, up2=up, winograd=winograd)])
         self.emb_layers = nn.ModuleList([nn.SiLU(), nn.Linear(emb_dim, 2 * c_out if use_scale_shift_norm else c_out)])
-        self.out_layers = nn.ModuleList([GroupNorm32(c_out), nn.SiLU(), nn.Dropout(), Conv3x3(c_out, c_out)])
+        self.out_layers = nn.ModuleList(
+            [GroupNorm32(c_out), nn.SiLU(), nn.Dropout(dropout), Conv3x3(c_out, c_out, winograd=winograd)]
+        )
         self.skip_connection = Conv2d(c_in, c_out, 1) if c_in != c_out else None
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, skip: Optional[torch.Tensor] = None, noise=None) -> torch.Tensor:
         gn_in, conv_in = self.in_layers[0], self.in_layers[2]
         split = None
         if skip is not None:
@@ -162,6 +192,7 @@ class ResBlock(nn.Module):
             h = group_norm_silu(h, gn_out.weight, gn_out.bias, scale=scale, shift=shift)
         else:
             h = group_norm_silu(h + emb_out[:, None, None, :].to(h.dtype), gn_out.weight, gn_out.bias)
+        h = dropout(h, self.out_layers[2].p, noise)
 
         if split is not None:
             x = _split_input_conv(self.skip_connection, x, skip)
@@ -191,9 +222,10 @@ class _Upsample(nn.Module):
 class ADMUNet(nn.Module):
     """Class-conditional epsilon(+learned variance) UNet.
 
-    ``forward(x [B,H,W,C], t (int | [B]), y [B'] | None)`` -> float32
-    [B, H, W, out_channels]. When ensemble members are folded into the batch
-    (B = k·B'), the labels are tiled k times, member-major.
+    ``forward(x [B,H,W,C], t (int | [B]), y [B'] | None, noise=None)`` ->
+    float32 [B, H, W, out_channels]; ``noise`` turns MC dropout on. When
+    ensemble members are folded into the batch (B = k·B'), the labels are
+    tiled k times, member-major.
     """
 
     def __init__(self, cfg: ADMUNetConfig):
@@ -212,49 +244,53 @@ class ADMUNet(nn.Module):
             return AttentionBlock(ch, num_heads=n, legacy_order=legacy)
 
         ss = cfg.use_scale_shift_norm
+
+        def res_block(c_in, c_out, up=False, down=False):
+            return ResBlock(c_in, c_out, td, ss, up=up, down=down, dropout=cfg.dropout, winograd=cfg.winograd)
+
         self.input_blocks = nn.ModuleList([nn.ModuleList([Conv3x3(cfg.in_channels, mc)])])
         input_chs = [mc]
         ch, ds = mc, 1
         for level, mult in enumerate(cfg.channel_mult):
             for _ in range(cfg.num_res_blocks):
-                layers = [ResBlock(ch, mult * mc, td, ss)]
+                layers = [res_block(ch, mult * mc)]
                 ch = mult * mc
                 if ds in cfg.attention_resolutions:
                     layers.append(attn(ch, False))
                 self.input_blocks.append(nn.ModuleList(layers))
                 input_chs.append(ch)
             if level != len(cfg.channel_mult) - 1:
-                down = ResBlock(ch, ch, td, ss, down=True) if cfg.resblock_updown else _Downsample(ch, cfg.conv_resample)
+                down = res_block(ch, ch, down=True) if cfg.resblock_updown else _Downsample(ch, cfg.conv_resample)
                 self.input_blocks.append(nn.ModuleList([down]))
                 input_chs.append(ch)
                 ds *= 2
 
-        self.middle_block = nn.ModuleList([ResBlock(ch, ch, td, ss), attn(ch, False), ResBlock(ch, ch, td, ss)])
+        self.middle_block = nn.ModuleList([res_block(ch, ch), attn(ch, False), res_block(ch, ch)])
 
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(cfg.channel_mult))):
             for i in range(cfg.num_res_blocks + 1):
-                layers = [ResBlock(ch + input_chs.pop(), mult * mc, td, ss)]
+                layers = [res_block(ch + input_chs.pop(), mult * mc)]
                 ch = mult * mc
                 if ds in cfg.attention_resolutions:
                     layers.append(attn(ch, True))
                 if level and i == cfg.num_res_blocks:
-                    layers.append(ResBlock(ch, ch, td, ss, up=True) if cfg.resblock_updown else _Upsample(ch, cfg.conv_resample))
+                    layers.append(res_block(ch, ch, up=True) if cfg.resblock_updown else _Upsample(ch, cfg.conv_resample))
                     ds //= 2
                 self.output_blocks.append(nn.ModuleList(layers))
 
         self.out = nn.ModuleList([GroupNorm32(ch), nn.SiLU(), Conv3x3(ch, cfg.out_channels)])
 
-    def _block(self, layers, h, emb, skip=None):
+    def _block(self, layers, h, emb, skip=None, noise=None):
         for layer in layers:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb, skip)
+                h = layer(h, emb, skip, noise)
                 skip = None
             else:
                 h = layer(h)
         return h
 
-    def forward(self, x: torch.Tensor, t, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t, y: Optional[torch.Tensor] = None, noise=None) -> torch.Tensor:
         cfg = self.cfg
         dtype = self.time_embed[0].weight.dtype
         emb = timestep_embedding(t, cfg.model_channels, cos_first=True, device=x.device)
@@ -274,11 +310,11 @@ class ADMUNet(nn.Module):
         h = self.input_blocks[0][0](x.to(dtype))
         hs = [h]
         for layers in self.input_blocks[1:]:
-            h = self._block(layers, h, emb)
+            h = self._block(layers, h, emb, noise=noise)
             hs.append(h)
-        h = self._block(self.middle_block, h, emb)
+        h = self._block(self.middle_block, h, emb, noise=noise)
         for layers in self.output_blocks:
-            h = self._block(layers, h, emb, skip=hs.pop())
+            h = self._block(layers, h, emb, skip=hs.pop(), noise=noise)
         gn = self.out[0]
         h = group_norm_silu(h, gn.weight, gn.bias)
         return self.out[2](h).float()

@@ -10,6 +10,8 @@ exactly:
 
 * ``adm_state_dict_from_flax`` inverts ``convert_adm_unet`` (and its legacy
   qkv row permutation);
+* ``unet2d_state_dict_from_flax`` inverts ``convert_unet2d`` (the diffusers
+  ``UNet2DModel`` layout of ``google/ddpm-cifar10-32``);
 * ``sd_unet_state_dict_from_flax`` inverts ``convert_sd_unet`` (diffusers
   ``UNet2DConditionModel`` layout, 1×1-conv or linear transformer
   projections);
@@ -27,6 +29,7 @@ import torch
 
 __all__ = [
     "adm_state_dict_from_flax",
+    "unet2d_state_dict_from_flax",
     "sd_unet_state_dict_from_flax",
     "autoencoder_kl_state_dict_from_flax",
     "legacy_qkv_permutation",
@@ -84,6 +87,11 @@ class _Out:
         self.conv(f"{pfx}.conv2", p["conv2"])
         if "conv_shortcut" in p:
             self.conv(f"{pfx}.conv_shortcut", p["conv_shortcut"])
+
+    def hf_attention(self, pfx: str, p: dict) -> None:
+        self.norm(f"{pfx}.group_norm", p["norm_scale"], p["norm_bias"])
+        for torch_name, flax_name in (("query", "to_q"), ("key", "to_k"), ("value", "to_v"), ("proj_attn", "to_out")):
+            self.dense(f"{pfx}.{torch_name}", p[flax_name])
 
     def sd_transformer(self, pfx: str, p: dict, depth: int, linear_proj: bool) -> None:
         proj = self.dense if linear_proj else self.conv1x1
@@ -196,6 +204,38 @@ def adm_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
     out.put("out.0.weight", P["out_norm_scale"])
     out.put("out.0.bias", P["out_norm_bias"])
     out.conv("out.2", P["conv_out"])
+    return out.sd
+
+
+def unet2d_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``UNet2D`` params -> diffusers ``UNet2DModel`` state dict (the
+    checkpoint's legacy attention names). Walks the same block program as
+    ``convert_unet2d``."""
+    P = params.get("params", params)
+    out = _Out()
+    n_levels = len(cfg.block_out_channels)
+    out.dense("time_embedding.linear_1", P["time_dense_0"])
+    out.dense("time_embedding.linear_2", P["time_dense_1"])
+    out.conv("conv_in", P["conv_in"])
+    for bi, btype in enumerate(cfg.down_block_types):
+        for li in range(cfg.layers_per_block):
+            out.hf_resnet(f"down_blocks.{bi}.resnets.{li}", P[f"down_{bi}_res_{li}"])
+            if btype == "AttnDownBlock2D":
+                out.hf_attention(f"down_blocks.{bi}.attentions.{li}", P[f"down_{bi}_attn_{li}"])
+        if bi != n_levels - 1:
+            out.conv(f"down_blocks.{bi}.downsamplers.0.conv", P[f"down_{bi}_downsample"]["conv"])
+    out.hf_resnet("mid_block.resnets.0", P["mid_res_0"])
+    out.hf_attention("mid_block.attentions.0", P["mid_attn"])
+    out.hf_resnet("mid_block.resnets.1", P["mid_res_1"])
+    for bi, btype in enumerate(cfg.up_block_types):
+        for li in range(cfg.layers_per_block + 1):
+            out.hf_resnet(f"up_blocks.{bi}.resnets.{li}", P[f"up_{bi}_res_{li}"])
+            if btype == "AttnUpBlock2D":
+                out.hf_attention(f"up_blocks.{bi}.attentions.{li}", P[f"up_{bi}_attn_{li}"])
+        if bi != n_levels - 1:
+            out.conv(f"up_blocks.{bi}.upsamplers.0.conv", P[f"up_{bi}_upsample"])
+    out.norm("conv_norm_out", P["out_norm_scale"], P["out_norm_bias"])
+    out.conv("conv_out", P["conv_out"])
     return out.sd
 
 

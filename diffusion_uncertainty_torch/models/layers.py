@@ -5,7 +5,8 @@ the reference's torch parameter layout (``Conv2d`` weights [K, C, kh, kw],
 ``Conv1d`` 1×1 attention projections), so reference state dicts load as
 they are. Convolutions run on cuDNN through channels_last views of the NHWC
 activations; GroupNorm, attention, pooling and the upsample interleave run
-through ``ops`` (Hopper kernels for CUDA tensors).
+through ``ops`` (Hopper kernels for CUDA tensors), and a ``Conv3x3`` built
+with ``winograd=True`` through the Winograd kernel op.
 """
 
 from __future__ import annotations
@@ -15,10 +16,12 @@ import math
 import torch
 import torch.nn as nn
 
+from ..kernels.winograd import weight_transform
 from ..ops.attention import dot_product_attention
 from ..ops.avgpool import avg_pool_2x2
 from ..ops.fused_upsample import conv2d_nhwc, conv3x3_nearest_up2
 from ..ops.groupnorm import group_norm_silu
+from ..ops.winograd_conv import conv3x3_winograd, reference_conv, supports
 
 __all__ = [
     "timestep_embedding",
@@ -29,6 +32,7 @@ __all__ = [
     "Conv2d",
     "Conv3x3",
     "split_qkv",
+    "dropout",
 ]
 
 
@@ -76,6 +80,20 @@ class GroupNorm32(nn.Module):
         return group_norm_silu(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps, apply_silu=False)
 
 
+def dropout(h: torch.Tensor, rate: float, noise) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate (one
+    ``noise.bernoulli`` mask of h's shape), scale what is kept by
+    1 / (1 - rate) in h's type. Identity when ``noise`` is None (the
+    deterministic forward) or the rate is 0."""
+    if noise is None or rate == 0.0:
+        return h
+    if rate == 1.0:
+        return torch.zeros_like(h)
+    keep = 1.0 - rate
+    mask = noise.bernoulli(h.shape, keep, h.device)
+    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+
 def nearest_upsample(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbour ×factor spatial upsample (NHWC)."""
     b, h, w, c = x.shape
@@ -100,17 +118,46 @@ class Conv2d(nn.Conv2d):
 class Conv3x3(Conv2d):
     """3×3 stride-1 SAME conv (NHWC). ``up2=True`` computes
     conv3x3(nearest_upsample_2x(x)) as four low-resolution phase convs and one
-    interleave (``ops.fused_upsample``)."""
+    interleave (``ops.fused_upsample``). ``winograd=True`` (the port's form
+    of the JAX package's ``DU_TPU_WINOGRAD=1``) routes every call whose shape
+    ``ops.winograd_conv.supports`` takes through the Winograd kernel op, with
+    the residual fused; the transformed weights are computed once and cached
+    on the module until the weight changes. The ``up2`` conv never takes it,
+    as in the JAX ``Conv3x3``."""
 
-    def __init__(self, in_channels: int, out_channels: int, up2: bool = False):
+    def __init__(self, in_channels: int, out_channels: int, up2: bool = False, winograd: bool = False):
         super().__init__(in_channels, out_channels, 3, padding=1)
         self.up2 = up2
+        self.winograd = winograd and not up2
+        self._wino_cache: dict = {}
+
+    def winograd_weights(self, lo: int = 0, hi=None) -> torch.Tensor:
+        """``weight_transform`` of input channels [lo, hi), cached until the
+        weight is another tensor or its storage, version or type changes."""
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        hit = self._wino_cache.get((lo, hi))
+        if hit is None or hit[0] is not w or hit[1] != key:
+            hit = (w, key, weight_transform(w[:, lo:hi]))
+            self._wino_cache[(lo, hi)] = hit
+        return hit[2]
+
+    def partial(self, x: torch.Tensor, lo: int, hi, bias: torch.Tensor, res=None) -> torch.Tensor:
+        """The conv of x with input channels [lo, hi) of the weight, + bias
+        (+ res): the Winograd route where the module has it and the shape is
+        supported, the direct conv otherwise."""
+        w = self.weight[:, lo:hi]
+        if self.winograd and supports(x.shape, w.shape):
+            return conv3x3_winograd(x, w, bias, res, use_kernel=True, u=self.winograd_weights(lo, hi))
+        return reference_conv(x, w, bias, res)
 
     def forward(self, x: torch.Tensor, res=None) -> torch.Tensor:
         if self.up2:
             if res is not None:
                 raise ValueError("the up2 conv has no fused residual")
             return conv3x3_nearest_up2(x, self.weight, self.bias)
+        if self.winograd:
+            return self.partial(x, 0, None, self.bias, res)
         return super().forward(x, res)
 
 

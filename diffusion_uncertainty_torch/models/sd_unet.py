@@ -56,6 +56,9 @@ class SDUNetConfig:
     num_attention_heads: Union[int, Tuple[int, ...]] = 8
     use_linear_projection: bool = False
     norm_num_groups: int = 32
+    # route the ResnetBlock2D 3x3 convs through the Winograd kernel op where
+    # the shape allows (the JAX package's DU_TPU_WINOGRAD=1); off by default
+    winograd: bool = False
 
     @staticmethod
     def sd15() -> "SDUNetConfig":
@@ -242,7 +245,7 @@ class SDUNet(nn.Module):
         for bi, (btype, out_ch) in enumerate(zip(cfg.down_block_types, cfg.block_out_channels)):
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block):
-                resnets.append(ResnetBlock2D(ch, out_ch, temb, groups))
+                resnets.append(ResnetBlock2D(ch, out_ch, temb, groups, winograd=cfg.winograd))
                 ch = out_ch
                 if btype == "CrossAttnDownBlock2D":
                     attns.append(xf(ch, bi))
@@ -254,14 +257,14 @@ class SDUNet(nn.Module):
             self.down_blocks.append(_Block(resnets, attns, "downsamplers", down))
 
         self.mid_block = _MidBlock(
-            [ResnetBlock2D(ch, ch, temb, groups), ResnetBlock2D(ch, ch, temb, groups)], [xf(ch, n_levels - 1)]
+            [ResnetBlock2D(ch, ch, temb, groups, winograd=cfg.winograd) for _ in range(2)], [xf(ch, n_levels - 1)]
         )
 
         self.up_blocks = nn.ModuleList()
         for bi, (btype, out_ch) in enumerate(zip(cfg.up_block_types, reversed(cfg.block_out_channels))):
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block + 1):
-                resnets.append(ResnetBlock2D(ch + skip_chs.pop(), out_ch, temb, groups))
+                resnets.append(ResnetBlock2D(ch + skip_chs.pop(), out_ch, temb, groups, winograd=cfg.winograd))
                 ch = out_ch
                 if btype == "CrossAttnUpBlock2D":
                     attns.append(xf(ch, n_levels - 1 - bi))

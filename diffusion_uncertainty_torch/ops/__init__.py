@@ -6,3 +6,4 @@ from .attention import dot_product_attention  # noqa: F401
 from .avgpool import avg_pool_2x2  # noqa: F401
 from .fused_upsample import conv3x3_nearest_up2, interleave_phases_2x, nearest_upsample_2x  # noqa: F401
 from .groupnorm import group_norm_silu  # noqa: F401
+from .winograd_conv import conv3x3_winograd  # noqa: F401

@@ -1,0 +1,197 @@
+"""Generate per-sample pixel-wise uncertainty maps: the paper's dataset CLI.
+
+JAX counterpart: ``diffusion_uncertainty_tpu/scripts/generate_dataset_score_uncertainty.py``
+(``Config``, ``select_apply_fn``, ``load_starting_points``, ``main``), with
+the same flags and defaults, plus ``--device`` (the card unless ``cpu``; no
+card raises). Reads the shared starting points
+(``scripts.generate_starting_points``), builds the dataset's model and
+schedule (``factory``), and writes the run's shards (``sampling``) into
+``results/score-uncertainty/<timestamp>/`` or ``--run-dir``.
+
+    python -m diffusion_uncertainty_torch.scripts.generate_starting_points --datasets cifar10
+    DU_TPU_WINOGRAD=1 python -m diffusion_uncertainty_torch.scripts.generate_dataset_score_uncertainty \\
+        --dataset cifar10 --scheduler-type mc_dropout --random-init true \\
+        --num-samples 128 --batch-size 128 --M 5 --generation-steps 50 \\
+        --start-step-uc 40 --num-steps-uc 10
+
+``DU_TPU_WINOGRAD=1``, the switch the JAX package honours, is read once here
+and builds the model with its Winograd conv route on. Runs: ``cifar10``,
+``imagenet64``, ``imagenet128`` and ``tiny`` with ``uncertainty_centered``,
+``uncertainty_zigzag_centered`` and ``mc_dropout``. Not ported yet (each
+raises naming its ROADMAP.md queue 1 item): the U-ViT datasets, the other
+scheduler types, classifier guidance and the device mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..diffusion.ddim import DiffusionConfig
+from ..diffusion.sampler import SamplerConfig
+from ..factory import instantiate_model_scheduler
+from ..sampling import generate_uncertainty_dataset
+from ..uncertainty import ESTIMATORS, EstimatorConfig, make_estimator
+from ..utils import paths
+from ..utils.config import parse_config, save_config
+from ..utils.experiments import new_run_dir
+
+__all__ = ["Config", "select_apply_fn", "load_starting_points", "local_shard_bounds", "main"]
+
+
+@dataclasses.dataclass
+class Config:
+    """Flags of the JAX CLI (the reference's), plus ``device``."""
+
+    dataset: str = "cifar10"
+    scheduler_type: str = "uncertainty_centered"
+    num_samples: int = 300
+    batch_size: int = 32
+    generation_steps: int = 20
+    M: int = 30
+    start_step_uc: int = 0
+    num_steps_uc: int = 20
+    seed: int = 0
+    eta: float = 0.0
+    dropout: float = 0.1
+    start_index: int = 0
+    predict_next: bool = False
+    uncertainty_distance: int = 20
+    num_zigzag: int = 3
+    ensemble_chunk: int = 0
+    # classifier guidance
+    classifier_scale: float = 0.0
+    # parallelism
+    mesh_data: int = 0  # 0 = no mesh (one card)
+    worker_index: int = 0
+    num_workers: int = 1
+    # environment
+    checkpoint: Optional[str] = None
+    random_init: bool = False
+    dtype: str = "bfloat16"
+    run_dir: Optional[str] = None
+    device: str = "cuda"
+
+
+# scheduler types of the JAX CLI that the port does not run yet
+_NOT_PORTED = {
+    "dpm_2_uncertainty_centered": "item 11 (the DPM-Solver sampler)",
+    "uncertainty_grad": "item 23 (the remaining guidance makers)",
+}
+
+
+def select_apply_fn(bundle, scheduler_type: str):
+    """(trajectory forward, estimator forward or None). The stochastic
+    variant's noise lives only in the uncertainty ensemble: the trajectory
+    forward is deterministic."""
+    if scheduler_type == "mc_dropout":
+        return bundle.apply_fn, bundle.apply_fn_dropout
+    return bundle.apply_fn, None
+
+
+def load_starting_points(dataset: str, start: int, stop: int):
+    folder = paths.starting_points() / dataset
+    if not (folder / "X_T.npz").exists():
+        raise FileNotFoundError(f"{folder}/X_T.npz not found: run scripts.generate_starting_points first")
+    with np.load(folder / "X_T.npz") as f:
+        x = f["data"][start:stop]
+    with np.load(folder / "y.npz") as f:
+        y = f["data"][start:stop]
+    return x, y
+
+
+def local_shard_bounds(total: int, rank: int, world: int) -> tuple[int, int]:
+    """[start, stop) of this worker's contiguous slice of the starting points."""
+    per = total // world
+    start = rank * per
+    stop = total if rank == world - 1 else start + per
+    return start, stop
+
+
+def _check_ported(cfg: Config) -> None:
+    if cfg.scheduler_type in _NOT_PORTED:
+        raise SystemExit(f"scheduler type {cfg.scheduler_type!r} is not ported yet: ROADMAP.md queue 1, {_NOT_PORTED[cfg.scheduler_type]}")
+    if cfg.scheduler_type not in ESTIMATORS:
+        raise SystemExit(f"scheduler type {cfg.scheduler_type!r} is not ported yet: ROADMAP.md queue 1, item 9 (estimators)")
+    if cfg.classifier_scale > 0:
+        raise SystemExit("classifier guidance is not ported yet: ROADMAP.md queue 1, item 10 (ADMClassifier)")
+    if cfg.mesh_data > 1:
+        raise SystemExit("the device mesh is not ported yet: ROADMAP.md queue 1, item 18 (parallelism)")
+    if cfg.dataset in ("imagenet256", "imagenet512"):
+        raise SystemExit(f"dataset {cfg.dataset!r} is not ported yet: ROADMAP.md queue 1, item 13 (U-ViT)")
+
+
+def main(argv=None) -> Path:
+    cfg = parse_config(Config, argv)
+    _check_ported(cfg)
+    winograd = os.environ.get("DU_TPU_WINOGRAD", "0") == "1"
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+    bundle = instantiate_model_scheduler(
+        cfg.dataset,
+        dropout=cfg.dropout if cfg.scheduler_type == "mc_dropout" else 0.0,
+        dtype=dtype,
+        checkpoint=Path(cfg.checkpoint) if cfg.checkpoint else None,
+        random_init=cfg.random_init,
+        device=cfg.device,
+        winograd=winograd,
+    )
+
+    w_start, w_stop = local_shard_bounds(cfg.num_samples, cfg.worker_index, cfg.num_workers)
+    x_t, y = load_starting_points(cfg.dataset, cfg.start_index + w_start, cfg.start_index + w_stop)
+    if bundle.num_classes is None:
+        y = None
+
+    sampler_cfg = SamplerConfig(
+        num_inference_steps=cfg.generation_steps,
+        num_train_timesteps=bundle.schedule.num_train_timesteps,
+        diffusion=DiffusionConfig(eta=cfg.eta),
+        after_step=cfg.start_step_uc,
+        num_steps_uc=cfg.num_steps_uc,
+    )
+    estimator = make_estimator(
+        EstimatorConfig(
+            name=cfg.scheduler_type,
+            M=cfg.M,
+            num_zigzag=cfg.num_zigzag,
+            predict_next=cfg.predict_next,
+            ensemble_chunk=cfg.ensemble_chunk,
+        )
+    )
+    apply_fn, estimator_apply_fn = select_apply_fn(bundle, cfg.scheduler_type)
+
+    run_dir = Path(cfg.run_dir) if cfg.run_dir else new_run_dir()
+    if not (run_dir / "args.yaml").exists():
+        save_config(cfg, run_dir / "args.yaml", winograd=winograd)
+    print(f"run dir: {run_dir}")
+
+    t0 = time.perf_counter()
+    generate_uncertainty_dataset(
+        apply_fn,
+        bundle.schedule,
+        sampler_cfg,
+        x_t,
+        y,
+        cfg.batch_size,
+        seed=cfg.seed,
+        estimator=estimator,
+        estimator_apply_fn=estimator_apply_fn,
+        run_dir=run_dir,
+        shard_offset=cfg.worker_index * 100000,  # disjoint shard ids per worker
+        keep_in_memory=False,
+    )
+    if bundle.schedule.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"{len(x_t)} images in {dt:.2f} s ({len(x_t) / dt:.4f} images/s) on {bundle.schedule.device}; artifacts in {run_dir}")
+    return run_dir
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

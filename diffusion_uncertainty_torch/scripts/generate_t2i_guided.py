@@ -27,7 +27,6 @@ sd3/flux, the safety checker and the streamed executor.
 from __future__ import annotations
 
 import dataclasses
-import json
 import struct
 import time
 import zlib
@@ -41,7 +40,7 @@ from ..diffusion.schedule import NoiseSchedule, make_schedule
 from ..models import AutoencoderKL, AutoencoderKLConfig, SDUNet, SDUNetConfig
 from ..models.layers import GroupNorm32
 from ..utils import paths
-from ..utils.config import parse_config
+from ..utils.config import parse_config, save_config
 from ..utils.device import resolve_device
 
 __all__ = ["Config", "SDStack", "build_sd_stack", "init_random_", "save_png", "main"]
@@ -177,11 +176,6 @@ def save_png(path, images) -> None:
     Path(path).write_bytes(_png_bytes(np.ascontiguousarray(np.concatenate(list(arr), axis=1))))
 
 
-def _write_args(path: Path, values: dict) -> None:
-    """Flat ``key: value`` YAML (JSON scalars are valid YAML)."""
-    path.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in sorted(values.items())))
-
-
 def _numbered_dir(base: Path) -> Path:
     i = 0
     while (base / f"{i}").exists():
@@ -221,7 +215,7 @@ def main(argv=None) -> int:
     )
     base = paths.ensure(paths.sd_uncertainty_guidance() if cfg.out_dir is None else Path(cfg.out_dir))
     dest = _numbered_dir(base)
-    _write_args(dest / "args.yaml", {**dataclasses.asdict(cfg), "pseudo_text": True})
+    save_config(cfg, dest / "args.yaml", pseudo_text=True)
 
     t0 = time.perf_counter()
     pipe = TextToImageUncertaintyPipeline(stack.denoise_fn, stack.schedule, stack.decode_fn, pcfg)

@@ -1,11 +1,15 @@
 """Where the device time of one full-width forward goes, on the card.
 
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model sd15 --batch 2 [--json PATH]
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model cifar10 --batch 128 --winograd 1
 
 No JAX counterpart (the JAX package's profiles are TPU traces). Builds the
 model with seeded random bf16 weights (``generate_t2i_guided.init_random_``;
 ``sd15``: the SD 1.5 UNet at a 64x64 latent, t=500, pseudo-text context;
-``adm128``: ImageNet-128 ADM, t=500), times ``ITERS`` forwards on the host
+``adm128``: ImageNet-128 ADM, t=500; ``cifar10``: the DDPM CIFAR-10 UNet from
+``factory.instantiate_model_scheduler(random_init=True)``, t=500, its
+ResnetBlock2D convs on the Winograd kernel with ``--winograd 1`` and on
+cuDNN with ``--winograd 0``), times ``ITERS`` forwards on the host
 clock (ending in a synchronize), then traces ``TRACE`` more with
 ``torch.profiler`` and prints the device time
 per forward by kernel family and the largest kernels, the device's busy
@@ -33,6 +37,7 @@ FAMILIES = (
     ("GN pair (port kernels)", ("gn_stats_kernel", "gn_apply_kernel")),
     ("interleave (port kernel)", ("interleave",)),
     ("avg-pool (port kernel)", ("avgpool", "avg_pool")),
+    ("Winograd conv (port kernel)", ("winograd_kernel",)),
     ("convolutions (cuDNN)", ("conv", "implicit", "wgrad", "dgrad", "fprop", "cudnn", "winograd")),
     ("matmuls (cuBLAS)", ("gemm", "gemv", "nvjet", "sm90_xmma", "cutlass", "ampere", "splitk")),
     ("copies, casts, cat", ("copy", "cat", "to_copy", "transpose", "CatArray")),
@@ -48,9 +53,15 @@ def _family(name: str) -> str:
     return "other"
 
 
-def build(model: str, batch: int, device):
+def build(model: str, batch: int, device, winograd: bool = False):
     """(forward closure, parameter count) with seeded random bf16 weights."""
     gen = torch.Generator(device=device).manual_seed(0)
+    if model == "cifar10":
+        from ..factory import instantiate_model_scheduler
+
+        net = instantiate_model_scheduler("cifar10", dropout=0.1, random_init=True, device=device, winograd=winograd).model
+        x = torch.randn(batch, 32, 32, 3, generator=gen, device=device)
+        return (lambda: net(x, 500)), sum(p.numel() for p in net.parameters())
     if model == "sd15":
         stack = build_sd_stack(Config(random_init=True), device=device)
         x = torch.randn(batch, 64, 64, 4, generator=gen, device=device)
@@ -64,19 +75,20 @@ def build(model: str, batch: int, device):
         x = torch.randn(batch, 128, 128, 3, generator=gen, device=device).to(torch.bfloat16)
         y = torch.randint(0, cfg.num_classes, (batch,), generator=gen, device=device)
         return (lambda: net(x, 500, y)), sum(p.numel() for p in net.parameters())
-    raise SystemExit(f"unknown model {model!r}: sd15 | adm128")
+    raise SystemExit(f"unknown model {model!r}: sd15 | adm128 | cifar10")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Profile one full-width forward on the card.")
-    ap.add_argument("--model", default="sd15", help="sd15 | adm128")
+    ap.add_argument("--model", default="sd15", help="sd15 | adm128 | cifar10")
     ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--winograd", type=int, default=0, help="cifar10: 1 runs the ResnetBlock2D convs on the Winograd kernel")
     ap.add_argument("--json", help="write the breakdown as JSON to this path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA card")
     dev = torch.device("cuda")
-    fwd, n_params = build(args.model, args.batch, dev)
+    fwd, n_params = build(args.model, args.batch, dev, bool(args.winograd))
     with torch.no_grad():
         for _ in range(2):
             fwd()
@@ -103,13 +115,13 @@ def main(argv=None) -> int:
     device_ms = sum(fams.values())
     launches = sum(n for _, n in by_kernel.values()) / TRACE
     out = {
-        "model": args.model, "batch": args.batch, "params_m": n_params / 1e6, "device": torch.cuda.get_device_name(0),
+        "model": args.model, "batch": args.batch, "winograd": bool(args.winograd), "params_m": n_params / 1e6, "device": torch.cuda.get_device_name(0),
         "wall_ms": wall_ms, "device_ms": device_ms, "device_busy": device_ms / wall_ms,
         "launches_per_forward": launches,
         "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": {n: ms for n, (ms, _) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]},
     }
-    print(f"{args.model} batch {args.batch}: {wall_ms:.2f} ms wall per forward, device busy {device_ms:.2f} ms "
+    print(f"{args.model} batch {args.batch} winograd {args.winograd}: {wall_ms:.2f} ms wall per forward, device busy {device_ms:.2f} ms "
           f"({100 * device_ms / wall_ms:.0f}%), {launches:.0f} kernel launches")
     for fam, ms in out["families_ms"].items():
         print(f"  {fam:<26} {ms:8.3f} ms")

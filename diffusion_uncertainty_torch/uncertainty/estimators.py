@@ -1,10 +1,13 @@
 """Pixel-wise uncertainty estimators over the model function (main-path part).
 
 JAX counterpart: ``diffusion_uncertainty_tpu/uncertainty/estimators.py``.
-Ported so far: ``uncertainty_centered`` and ``uncertainty_zigzag_centered``
-(and their aliases), and ``_ensemble_noised_scores``, which the guidance
-shares. ``vmap`` over the M ensemble members becomes members
-folded into the batch; ``lax.map`` becomes a loop over member groups.
+Ported so far: ``uncertainty_centered``, ``uncertainty_zigzag_centered``
+(and their aliases), ``mc_dropout``, and ``_ensemble_noised_scores``, which
+the guidance shares. ``vmap`` over the M ensemble members becomes members
+folded into the batch; ``lax.map`` becomes a loop over member groups. Where
+JAX hands each member its own key for a stochastic model (``mc_dropout``),
+the port hands the folded forward the noise source, and the model draws one
+mask of the folded [M·B, ...] activation per dropout site (``utils.rng``).
 
 Estimator contract (see ``diffusion.sampler``):
     estimator(model_fn, schedule, state: StepState, noise) -> u  [B, ...] float32
@@ -50,22 +53,23 @@ def _member_groups(m: int, chunk: int) -> list[range]:
     return [range(i, i + chunk) for i in range(0, m, chunk)]
 
 
-def _fold(fn: ModelFn, xs: torch.Tensor, t) -> torch.Tensor:
-    """model_fn on [G, B, ...] inputs as one [G*B, ...] batch (deterministic
-    forwards: no noise source)."""
+def _fold(fn: ModelFn, xs: torch.Tensor, t, noise=None) -> torch.Tensor:
+    """model_fn on [G, B, ...] inputs as one [G*B, ...] batch; ``noise`` is
+    passed on (None: a deterministic forward)."""
     g, b = xs.shape[:2]
-    out = fn(xs.reshape((g * b,) + xs.shape[2:]), t, None)
+    out = fn(xs.reshape((g * b,) + xs.shape[2:]), t, noise)
     return out.reshape((g, b) + out.shape[1:])
 
 
-def ensemble_forward(model_fn: ModelFn, xs: torch.Tensor, t, chunk: int = 0) -> torch.Tensor:
+def ensemble_forward(model_fn: ModelFn, xs: torch.Tensor, t, chunk: int = 0, noise=None) -> torch.Tensor:
     """M model forwards on stacked inputs [M, B, ...]. ``chunk=0`` folds the
     whole ensemble into one batch of M*B; ``chunk>0`` runs members ``chunk``
-    at a time to bound activation memory."""
+    at a time to bound activation memory. ``noise``: the noise source of a
+    stochastic ``model_fn`` (one call per group), or None."""
     groups = _member_groups(xs.shape[0], chunk)
     if len(groups) == 1:
-        return _fold(model_fn, xs, t)
-    return torch.cat([_fold(model_fn, xs[g.start : g.stop], t) for g in groups])
+        return _fold(model_fn, xs, t, noise)
+    return torch.cat([_fold(model_fn, xs[g.start : g.stop], t, noise) for g in groups])
 
 
 def _renoise(schedule: NoiseSchedule, state: StepState, noise: torch.Tensor, predict_next: bool) -> torch.Tensor:
@@ -124,17 +128,27 @@ def zigzag_centered(model_fn, schedule, state: StepState, noise, cfg: EstimatorC
     return _centered_u(torch.cat(scores), state.pred_epsilon)
 
 
+def mc_dropout(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
+    """u = Var_m(score_m) with ddof=1 over M stochastic forwards on the same
+    x_t; ``model_fn`` draws its dropout masks from ``noise`` (the reference
+    runs the UNet in train mode inside the window and takes ``torch.var``)."""
+    xs = state.sample.expand((cfg.M,) + tuple(state.sample.shape))
+    scores = ensemble_forward(model_fn, xs, state.timestep, cfg.ensemble_chunk, noise)
+    return torch.var(scores.float(), dim=0, correction=1)
+
+
 ESTIMATORS: dict[str, Callable] = {
     "uncertainty_centered": centered,
     "uncertainty_zigzag_centered": zigzag_centered,
     "dpm_2_uncertainty_centered": centered,
     "centered": centered,
     "zigzag_centered": zigzag_centered,
+    "mc_dropout": mc_dropout,
 }
 
 # estimators of the JAX registry that the port does not have yet
 NOT_PORTED = (
-    "uncertainty", "uncertainty_original", "mc_dropout", "uncertainty_image",
+    "uncertainty", "uncertainty_original", "uncertainty_image",
     "uncertainty_centered_d", "infer_noise", "flip", "uncertainty_grad",
     "image", "centered_d",
 )

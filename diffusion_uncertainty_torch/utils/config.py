@@ -1,20 +1,24 @@
 """Typed CLI configs: dataclass defaults < ``--config`` YAML < CLI flags.
 
 JAX counterpart: ``diffusion_uncertainty_tpu/utils/config.py``
-(``parse_config`` and what it needs); a copy of its rules, so that flags,
-YAML files and ``args.yaml`` read the same in both packages.
+(``parse_config``, ``save_config`` and what they need); a copy of its rules,
+so that flags, YAML files and ``args.yaml`` read the same in both packages.
+``save_config`` writes one ``key: value`` line per field with JSON scalars,
+which is valid YAML and needs no YAML package.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import typing
+from pathlib import Path
 from typing import Any, Optional, Sequence, Type, TypeVar
 
 T = TypeVar("T")
 
-__all__ = ["parse_config", "from_dict"]
+__all__ = ["parse_config", "from_dict", "save_config"]
 
 
 def _unwrap_optional(tp: Any) -> Any:
@@ -33,6 +37,12 @@ def _coerce(tp: Any, value: Any) -> Any:
         if isinstance(value, bool):
             return value
         return str(value).lower() in ("1", "true", "yes", "on")
+    if typing.get_origin(tp) in (list, tuple) or tp in (list, tuple):
+        args = typing.get_args(tp)
+        elem = args[0] if args else str
+        seq = value if isinstance(value, (list, tuple)) else str(value).split(",")
+        out = [_coerce(elem, v) for v in seq]
+        return tuple(out) if (typing.get_origin(tp) or tp) is tuple else out
     if tp in (int, float, str):
         return tp(value)
     return value
@@ -69,3 +79,12 @@ def parse_config(cls: Type[T], argv: Optional[Sequence[str]] = None, defaults: O
         if v is not None:
             merged[f.name] = v
     return from_dict(cls, merged)
+
+
+def save_config(cfg: Any, path, **extra: Any) -> None:
+    """Run metadata as ``args.yaml``: the dataclass's fields (or a dict's
+    items) and ``extra``, sorted, one ``key: <JSON scalar>`` line each."""
+    values = {**(dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else dict(cfg)), **extra}
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in sorted(values.items())))

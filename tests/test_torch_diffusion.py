@@ -163,7 +163,7 @@ def test_make_estimator_registry():
     est = t_make_estimator(TEstimatorConfig(name="uncertainty_zigzag_centered"))
     assert est.keywords["cfg"].predict_next  # forced, as in the reference
     with pytest.raises(KeyError, match="not ported"):
-        t_make_estimator(TEstimatorConfig(name="mc_dropout"))
+        t_make_estimator(TEstimatorConfig(name="infer_noise"))
     with pytest.raises(KeyError, match="unknown"):
         t_make_estimator(TEstimatorConfig(name="nope"))
 

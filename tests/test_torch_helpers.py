@@ -191,11 +191,21 @@ def jax_guidance_noise(key, shape, num_inference_steps, after_step, num_steps_uc
 
 
 class ReplayNoise:
-    """A noise source that hands out recorded draws in order."""
+    """A noise source that hands out recorded draws in order: Gaussian
+    ``draws`` for ``normal`` and dropout keep-``masks`` for ``bernoulli``."""
 
-    def __init__(self, draws):
+    def __init__(self, draws, masks=()):
         self.draws = list(draws)
         self.used = 0
+        self.masks = list(masks)
+        self.masks_used = 0
+
+    def bernoulli(self, shape, p, device=None):
+        m = self.masks[self.masks_used]
+        if tuple(m.shape) != tuple(shape):
+            raise AssertionError(f"mask {self.masks_used}: recorded shape {m.shape}, asked {tuple(shape)}")
+        self.masks_used += 1
+        return torch.from_numpy(np.array(m, dtype=bool)).to(device)
 
     def normal(self, shape, dtype=torch.float32, device=None):
         a = self.draws[self.used]
