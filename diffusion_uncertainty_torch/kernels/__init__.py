@@ -2,8 +2,9 @@
 
 One module per kernel: the ctypes wrapper and its plain PyTorch version
 (taken for CPU tensors only); launches are counted by name in
-``_build.LAUNCHES`` (``launch_counts``). ``_build`` compiles
-``csrc/*.cu`` with ``nvcc`` at first use.
+``_build.LAUNCHES`` (``launch_counts``), attention launches also by route
+(``route_counts``). ``_build`` compiles ``csrc/*.cu`` with ``nvcc`` at first
+use.
 """
 
 from . import attention, avgpool, groupnorm, interleave, winograd  # noqa: F401
@@ -16,5 +17,11 @@ def launch_counts() -> dict[str, int]:
     return {name: _LAUNCHES[name] for name in COUNTERS}
 
 
+def route_counts() -> dict[str, int]:
+    """Attention launches by route since the last reset."""
+    return {name: attention.ROUTE_LAUNCHES[name] for name in attention.ROUTES}
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
+    attention.ROUTE_LAUNCHES.clear()

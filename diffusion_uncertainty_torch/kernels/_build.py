@@ -16,6 +16,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,6 +26,7 @@ import torch
 
 __all__ = [
     "SOURCES", "BUILD_DIR", "COUNTERS", "LAUNCHES", "build", "load", "check", "stream_ptr", "dtype_code", "require_cuda",
+    "ptxas_report",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -101,6 +103,33 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _kernel_name(mangled: str) -> str:
+    """'attention_tc_kernel<40,8>' from its mangled name (int, float and
+    bf16 template arguments); the mangled name where it does not parse."""
+    m = re.search(r"([A-Za-z_]+_kernel)(I(.*?)E)?Ev", mangled)
+    if not m:
+        return mangled
+    args = re.sub(r"Li(\d+)E", r"\1,", (m.group(3) or "").replace("13__nv_bfloat16", "B,").replace("f", "float,"))
+    args = args.replace("B,", "bf16,").rstrip(",")
+    return f"{m.group(1)}<{args}>" if args else m.group(1)
+
+
+def ptxas_report(name: str) -> list[str]:
+    """'kernel: N registers, spill stores/loads' for each entry function of
+    the ptxas report of ``name``'s build in this process (empty when the
+    library came from the cache)."""
+    out, entry, spill = [], None, ""
+    for line in build_logs.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            entry, spill = _kernel_name(line.split("'")[1]), ""
+        elif entry and "spill stores" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif entry and "Used" in line and "registers" in line:
+            out.append(f"{entry}: {line.split('Used', 1)[1].split(',')[0].strip()}, {spill}")
+            entry = None
+    return out
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error (a refused launch never runs
     and a later synchronize would not report it)."""
@@ -109,8 +138,9 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on t's card, as the raw pointer value."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -125,5 +155,5 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
     """The kernel path takes contiguous tensors on the current CUDA device."""
     dev = torch.cuda.current_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device.index != dev:
+        if t.get_device() != dev:  # -1 on the CPU
             raise ValueError(f"{what}: expected tensors on cuda:{dev}, got {t.device}")

@@ -3,10 +3,10 @@
 JAX counterpart: ``diffusion_uncertainty_tpu/ops/attention.py``
 (``dot_product_attention``, ``_flash_with_xla_grad`` / ``_packed_with_xla_grad``
 and their VJP ``_flash_bwd``). For CPU tensors the plain version runs
-(float32 logits, exact softmax); for CUDA tensors one
-Hopper kernel, ``kernels.attention.attention``, serves every head dim and key
-length the JAX package split between its whole-row flash, long-key flash and
-packed-head kernels. The plain version (the JAX ``_xla_attention``) is
+(float32 logits, exact softmax); for CUDA tensors
+``kernels.attention.attention`` serves every head dim and key length the JAX
+package split between its whole-row flash, long-key flash and packed-head
+kernels, by one of three Hopper kernels (tensor core, wide head, CUDA core). The plain version (the JAX ``_xla_attention``) is
 ``kernels.attention.attention_plain``. The backward is eager float32 math,
 as ``_flash_bwd``. The TPU-only bounded-logit softmax is not ported.
 """

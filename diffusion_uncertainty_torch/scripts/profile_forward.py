@@ -33,7 +33,7 @@ ITERS = 10  # forwards timed on the host clock
 TRACE = 3  # forwards traced by torch.profiler
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
-    ("attention (port kernel)", ("attention_kernel", "attention_wide_kernel", "attention_mma_kernel")),
+    ("attention (port kernel)", ("attention_kernel", "attention_tc_kernel", "attention_wide_kernel", "attention_combine_kernel")),
     ("GN pair (port kernels)", ("gn_stats_kernel", "gn_apply_kernel")),
     ("interleave (port kernel)", ("interleave",)),
     ("avg-pool (port kernel)", ("avgpool", "avg_pool")),

@@ -3,14 +3,17 @@
 No JAX counterpart: JAX places arrays on its default backend. The port's
 entry points (``make_schedule``, ``TorchNoise``, ``build_sd_stack``, the
 text-to-image CLI) run on the card unless the caller asks for the CPU; with
-no card they raise instead of falling back.
+no card they raise instead of falling back. ``device_ms`` times work on the
+card for the measurement scripts.
 """
 
 from __future__ import annotations
 
+import statistics
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "device_ms"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -20,3 +23,20 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev}: no CUDA card is available (pass device='cpu' to run on the CPU)")
     return dev
+
+
+def device_ms(fn, reps: int = 5, inner: int = 10) -> float:
+    """Median over ``reps`` of the mean device time (CUDA events) of ``inner``
+    back-to-back calls of ``fn``, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(inner):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / inner)
+    return statistics.median(times)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import diffusion_uncertainty_tpu.ops.groupnorm as jgn
+from diffusion_uncertainty_torch.kernels import attention as katt
 from diffusion_uncertainty_torch.kernels.attention import attention as attention_kernel
 from diffusion_uncertainty_torch.kernels.attention import attention_plain
 from diffusion_uncertainty_torch.kernels.avgpool import avg_pool_2x2 as avgpool_kernel
@@ -214,9 +215,17 @@ def test_kernels_on_card(cuda, dtype, tol):
     y, yp = gn_apply(x, a, b), gn_apply_plain(x, a, b)
     # bf16: one rounding step of the output (2^-7 relative) on top of tol
     assert (y.float() - yp.float()).abs().max() <= tol + 2**-7 * yp.float().abs().max()
-    for d in (64, 72):  # bf16: tensor-core kernel at D=64, CUDA-core kernel at D=72
-        q, k, v = split_qkv(r(2, 64, 3 * 2 * d), 2, True)
-        assert (attention_kernel(q, k, v).float() - attention_plain(q, k, v).float()).abs().max() <= tol
+    # bf16 routes: tensor cores at SD's 40/80/160 and ADM's 64, CUDA cores at 72,
+    # the wide kernel at 512 (64 keys: four splits and the combine); float32:
+    # CUDA cores up to 256, the wide kernel (3xTF32) at 512
+    bf16 = dtype == torch.bfloat16
+    for d, heads, want in ((40, 2, "tensor_core"), (64, 2, "tensor_core"), (72, 2, "cuda_core"),
+                           (80, 2, "tensor_core"), (160, 2, "tensor_core"), (512, 1, "wide")):
+        q, k, v = split_qkv(r(2, 64, 3 * heads * d), heads, True)
+        katt.ROUTE_LAUNCHES.clear()
+        out = attention_kernel(q, k, v)
+        assert katt.ROUTE_LAUNCHES[want if bf16 or d == 512 else "cuda_core"] == 1
+        assert (out.float() - attention_plain(q, k, v).float()).abs().max() <= tol
     xp = r(2, 8, 8, 128)
     assert (avgpool_kernel(xp).float() - avg_pool_2x2_plain(xp).float()).abs().max() <= tol
     ys = [r(2, 4, 4, 128) for _ in range(4)]
