@@ -8,15 +8,18 @@ Phases (a failure in any of them ends the run with a non-zero exit):
 1. Build the hand-written Hopper kernels from ``diffusion_uncertainty_torch/
    kernels/csrc`` with nvcc (one process per source, in parallel); print the
    seconds, the card's name and power limit, and the registers and spills
-   of every attention kernel instance (ptxas).
+   of every attention, Winograd and GroupNorm kernel instance (ptxas).
 2. Hold every kernel against its plain PyTorch version on the card, at every
    shape the full-width models give it, recorded from the forwards of phases
    3, 5 and 7: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the CFG
    batch), the SD VAE decoder at batch 1 (64x64 latent) and the CIFAR-10 UNet
    at batch 128 (the CLI batch), in bfloat16 and float32. Tolerances:
    interleave bit-exact; avg-pool within 1 bf16 ulp;
-   GroupNorm |kernel - plain| <= 2e-2 + 2^-7·|plain| in bf16 (the second term
-   is one output rounding step where |y| > 2) and <= 1e-4 in f32; attention,
+   GroupNorm (the routed ``group_norm`` call against ``group_norm_plain``, and
+   the gn_stats + gn_apply pair at every shape too, against the op's
+   reference) |kernel - plain| <= 2e-2 + 2^-7·|plain| in bf16 (the
+   second term is one output rounding step where |y| > 2) and <= 1e-4 in f32,
+   each check printing its route (one launch or the pair); attention,
    scaled to the output (whose size falls as 1/sqrt(S_kv) for random inputs),
    max |kernel - plain| <= 2^-6·max|plain| (2 to 4 bf16 ulps of the largest
    output) and relative L2 <= 5e-3 in bf16, max |kernel - plain| <=
@@ -31,9 +34,9 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    computes the same function (``F.scaled_dot_product_attention``,
    ``F.avg_pool2d``, a stack/permute/reshape copy for the interleave,
    ``F.conv2d`` on channels_last (+ the residual add) for the Winograd conv, and
-   ``F.group_norm`` (+``F.silu``) for the GN pair: that one call covers both
-   ``gn_stats`` and ``gn_apply``, so it stands on both kernels' lines and the
-   pair is timed back to back against it), and the bound: the larger of bytes
+   ``F.group_norm`` (+``F.silu``) for GroupNorm: that one call covers
+   ``group_norm`` and both kernels of the pair, so it stands on all three
+   lines, and the pair is also timed back to back), and the bound: the larger of bytes
    moved (each input read once, each output written once) / 3.35 TB/s and
    operations / 989 TFLOP/s (dense bf16; the Winograd conv counts its 2 x 16
    x tiles x C x K multiply-adds; float32 attention at 495/3 TFLOP/s, the
@@ -59,20 +62,24 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    the input) on the card must be finite and match the same grad through the
    plain versions on the card within 5e-2 rel L2. Every bf16 UNet attention
    launch (forward and backward) must take the tensor-core route, and the
-   VAE's float32 D=512 attention the wide route.
+   VAE's float32 D=512 attention the wide route. Every UNet GroupNorm takes
+   the one-launch route; the VAE's take it where 8 blocks hold the group and
+   the pair elsewhere, every 256x256 and 512x512 map among them (phase 3
+   holds the ADM forward to the one-launch route the same way).
 6. SD 1.5 main path, the CLI defaults: ``build_sd_stack`` +
    ``TextToImageUncertaintyPipeline``, 512x512, 20 DDIM steps, CFG 7.5,
    percentile guidance on steps [0, 20) at 0.95 with M=5, gradient branch (lr
    0.99), one prompt; then once more with the posterior branch. Images
    [1, 512, 512, 3] finite, uncertainty [1, 20, 64, 64, 4] with positive mean;
-   no attention launch on the CUDA-core route, the VAE's on the wide route.
+   no attention launch on the CUDA-core route, the VAE's on the wide route;
+   GroupNorm on the pair exactly as often as one VAE decode takes it.
 7. The full-width CIFAR-10 UNet (``UNet2DConfig.ddpm_cifar10(dropout=0.1)``,
    35.7M parameters, seeded random bf16 weights from
    ``instantiate_model_scheduler(random_init=True)``, t=500, batch 128) with
    ``winograd=True`` against the same weights in float32 on the CPU with the
    direct conv at batch 1 (rel L2 <= 2e-2), and against the same card forward
    with ``winograd=False`` (printed); exactly 44 Winograd launches per
-   forward, and 51 per GN kernel, 6 attention, 3 interleave.
+   forward, and 51 one-launch GroupNorms (no pair), 6 attention, 3 interleave.
 8. CIFAR-10 main path through the dataset CLI's functions:
    ``instantiate_model_scheduler("cifar10", dropout=0.1, random_init=True)``
    and ``generate_uncertainty_dataset`` with ``mc_dropout``, M=5, 50 DDIM
@@ -114,20 +121,23 @@ CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,)
 F32_MODELS = ("vae",)  # models whose main path runs in float32 (the SD VAE decoder)
 SRC = "diffusion_uncertainty_torch/kernels/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "group_norm": (SRC + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:65"),
     "gn_stats": (SRC + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:454"),
-    "gn_apply": (SRC + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:65"),
+    "gn_apply": (SRC + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:578"),
     "attention": (SRC + "attention.cu", "diffusion_uncertainty_tpu/ops/flash_attention.py:87"),
     "attention_long": (SRC + "attention.cu", "diffusion_uncertainty_tpu/ops/flash_attention.py:134"),
     "avg_pool_2x2": (SRC + "avgpool.cu", "diffusion_uncertainty_tpu/ops/avgpool.py:30"),
     "interleave_2x": (SRC + "interleave.cu", "diffusion_uncertainty_tpu/ops/fused_upsample.py:110"),
     "winograd": (SRC + "winograd.cu", "diffusion_uncertainty_tpu/ops/winograd_conv.py:154"),
 }
-ADM_PATH = ("gn_stats", "gn_apply", "attention", "avg_pool_2x2", "interleave_2x")
-SD_PATH = ("gn_stats", "gn_apply", "attention", "attention_long", "interleave_2x")
-CIFAR_PATH = ("gn_stats", "gn_apply", "attention", "interleave_2x", "winograd")
+ADM_PATH = ("group_norm", "attention", "avg_pool_2x2", "interleave_2x")
+# the VAE decode's GroupNorms over its large maps take the pair
+SD_PATH = ("group_norm", "gn_stats", "gn_apply", "attention", "attention_long", "interleave_2x")
+CIFAR_PATH = ("group_norm", "attention", "interleave_2x", "winograd")
 # launches of one CIFAR-10 UNet forward: 22 ResnetBlock2Ds x 2 convs; 2 GNs per
-# block, 6 attention norms and the output norm; 6 attentions; 3 upsamplers
-CIFAR_FORWARD = {"winograd": 44, "gn_stats": 51, "gn_apply": 51, "attention": 6, "interleave_2x": 3}
+# block, 6 attention norms and the output norm, each one launch; 6
+# attentions; 3 upsamplers
+CIFAR_FORWARD = {"winograd": 44, "group_norm": 51, "gn_stats": 0, "gn_apply": 0, "attention": 6, "interleave_2x": 3}
 
 
 def fail(msg: str) -> None:
@@ -216,12 +226,12 @@ class PlainKernels:
 
 def signature(name, args):
     """What phase 2 needs to rebuild a call's inputs (per image)."""
-    if name == "gn_stats":
-        x, groups, eps = args[0], args[3], args[4]
+    if name == "group_norm":
+        x, groups = args[0], args[3]
+        eps = args[4] if len(args) > 4 else 1e-5
         scale = args[5] if len(args) > 5 else None
-        return (x.shape[1], x.shape[2], x.shape[3], groups, float(eps), scale is not None)
-    if name == "gn_apply":
-        return bool(args[3]) if len(args) > 3 else True
+        silu = bool(args[7]) if len(args) > 7 else True
+        return (x.shape[1], x.shape[2], x.shape[3], groups, float(eps), scale is not None, silu)
     if name == "attention":
         q, k = args[0], args[1]
         s, h, d = q.shape[1:]
@@ -239,17 +249,11 @@ def signature(name, args):
 
 
 def shape_sets(calls):
-    """Recorded calls -> {kernel family: sorted distinct signatures}; a GN
-    signature pairs a gn_stats call with the gn_apply call after it."""
-    sets = {"gn": set(), "attention": set(), "avg_pool_2x2": set(), "interleave_2x": set(), "winograd_conv": set()}
-    pending = None
+    """Recorded calls -> {kernel family: sorted distinct signatures}."""
+    sets = {"group_norm": set(), "attention": set(), "avg_pool_2x2": set(), "interleave_2x": set(),
+            "winograd_conv": set()}
     for name, sig in calls:
-        if name == "gn_stats":
-            pending = sig
-        elif name == "gn_apply":
-            sets["gn"].add(pending + (sig,))
-        else:
-            sets[name].add(sig)
+        sets[name].add(sig)
     return {k: sorted(v, key=str) for k, v in sets.items()}
 
 
@@ -286,10 +290,10 @@ def main() -> None:
     from diffusion_uncertainty_torch.utils import TorchNoise
     from diffusion_uncertainty_torch.utils.device import device_ms
 
-    wrapper_mods = {"gn_stats": kgn, "gn_apply": kgn, "attention": katt, "avg_pool_2x2": kpool, "interleave_2x": kilv,
+    wrapper_mods = {"group_norm": kgn, "attention": katt, "avg_pool_2x2": kpool, "interleave_2x": kilv,
                     "winograd_conv": kwino}
     plains = {
-        "gn_stats": kgn.gn_stats_plain, "gn_apply": kgn.gn_apply_plain, "attention": katt.attention_plain,
+        "group_norm": kgn.group_norm_plain, "attention": katt.attention_plain,
         "avg_pool_2x2": kpool.avg_pool_2x2_plain, "interleave_2x": kilv.interleave_2x_plain,
         "winograd_conv": kwino.winograd_conv_plain,
     }
@@ -306,8 +310,13 @@ def main() -> None:
     print(f"[1] build: {build_s:.1f} s ({', '.join(kernels.SOURCES)}) on {card}", flush=True)
     details["build_s"] = build_s
     details["ptxas"] = dict(kernels._build.build_logs)
-    for inst in kernels._build.ptxas_report("attention"):
-        print(f"[1] ptxas attention {inst}", flush=True)
+    for src in ("attention", "winograd", "groupnorm"):
+        for inst in kernels._build.ptxas_report(src):
+            print(f"[1] ptxas {src} {inst}", flush=True)
+    spills = [f"{src}: {inst}" for src in ("winograd", "groupnorm") for inst in kernels._build.ptxas_report(src)
+              if not ("0 bytes spill stores" in inst and "0 bytes spill loads" in inst)]
+    if spills:
+        fail(f"ptxas spills registers in a Winograd or GroupNorm kernel: {spills}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def check_counts(counts, path, what):
@@ -319,6 +328,11 @@ def main() -> None:
         """The SD UNet's bf16 attention is held to the tensor-core route."""
         if routes["cuda_core"] or routes["tensor_core"] <= 0:
             fail(f"{what}: an SD attention launch left the tensor-core route: {routes}")
+
+    def check_gn_one_launch(gn_routes, what):
+        """Every GroupNorm of a UNet forward takes the one-launch route."""
+        if gn_routes["pair"] or gn_routes["one_launch"] <= 0:
+            fail(f"{what}: a GroupNorm left the one-launch route: {gn_routes}")
 
     # ---- recording forwards (the card runs of phases 3 and 5) -----------
     cfg = ADMUNetConfig.imagenet128()
@@ -337,7 +351,7 @@ def main() -> None:
         out_adm = model(x2, 500, y2)
         torch.cuda.synchronize()
         adm_fwd_s = time.perf_counter() - t0
-    adm_fwd_counts = kernels.launch_counts()
+    adm_fwd_counts, adm_gn_routes = kernels.launch_counts(), kernels.gn_route_counts()
 
     stack = build_sd_stack(T2IConfig(random_init=True), device=dev)
     unet, vae = stack.unet, stack.vae
@@ -352,13 +366,13 @@ def main() -> None:
         out_sd = unet(xs, 500, ctx)
         torch.cuda.synchronize()
         sd_fwd_s = time.perf_counter() - t0
-    sd_fwd_counts, sd_fwd_routes = kernels.launch_counts(), kernels.route_counts()
+    sd_fwd_counts, sd_fwd_routes, sd_gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
     z64 = torch.randn(1, 64, 64, 4, generator=gen, device=dev)
     kernels.reset_launch_counts()
     with torch.no_grad(), Recorder(wrapper_mods) as rec_vae:
         img64 = vae.decode(z64)
         torch.cuda.synchronize()
-    vae_counts, vae_routes = kernels.launch_counts(), kernels.route_counts()
+    vae_counts, vae_routes, vae_gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
 
     # the CIFAR-10 UNet with its Winograd route on, and the same seeded weights
     # with it off
@@ -375,7 +389,7 @@ def main() -> None:
         out_cifar = cifar.model(xc, 500)
         torch.cuda.synchronize()
         cifar_fwd_s = time.perf_counter() - t0
-    cifar_counts = kernels.launch_counts()
+    cifar_counts, cifar_gn_routes = kernels.launch_counts(), kernels.gn_route_counts()
 
     # ---- phase 2: every kernel against its plain version -----------------
     sets = {"adm": shape_sets(rec_adm.sigs), "sd": shape_sets(rec_sd.sigs), "vae": shape_sets(rec_vae.sigs),
@@ -416,20 +430,31 @@ def main() -> None:
         gamma, beta = rnd(c, dtype=dtype, scale=0.1, shift=1.0), rnd(c, dtype=dtype, scale=0.1)
         sc = rnd(batch, c, dtype=dtype, scale=0.1) if ss else None
         sh = rnd(batch, c, dtype=dtype, scale=0.1) if ss else None
+        args = (x, gamma, beta, groups, eps, sc, sh, silu)
+        kernels.reset_launch_counts()
+        y = kgn.group_norm(*args)
+        route = "+".join(r for r, n in kernels.gn_route_counts().items() if n)
         a, b = kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh)
         ap_, bp_ = kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh)
-        y = kgn.gn_apply(x, a, b, silu)
-        ref = _reference_impl(x, gamma, beta, groups, eps, sc, sh, silu).float()
-        e_pair = (y.float() - ref).abs()
+        y_pair = kgn.gn_apply(x, a, b, silu)
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        bound = tol + (2.0**-7 * ref.abs() if dtype == torch.bfloat16 else 0.0)
-        if not bool((e_pair <= bound).all()):
-            fail(f"GroupNorm pair disagrees at {(src, batch, h, w, c, groups, eps, ss, silu, dtype)}: max err {float(e_pair.max())}")
+
+        def within(got, want):  # bf16: one output rounding step (2^-7 relative) on top of tol
+            return bool(((got.float() - want).abs() <= tol + (2.0**-7 * want.abs() if dtype == torch.bfloat16 else 0.0)).all())
+
+        plain = kgn.group_norm_plain(*args).float()
+        ref = _reference_impl(*args).float()
+        e_one, e_pair = float((y.float() - plain).abs().max()), float((y_pair.float() - ref).abs().max())
+        where = (src, batch, h, w, c, groups, eps, ss, silu, dtype)
+        if not within(y, plain):
+            fail(f"group_norm ({route}) disagrees with its plain version at {where}: max err {e_one}")
+        if not within(y_pair, ref):
+            fail(f"GroupNorm pair disagrees at {where}: max err {e_pair}")
         e_stats = max(float((a - ap_).abs().max()), float((b - bp_).abs().max()))
         if e_stats > 1e-3:
             fail(f"gn_stats disagrees at {(src, batch, h, w, c, groups, eps)}: {e_stats}")
         shape = [batch, h, w, c, groups, eps, ss, silu]
-        t_stats = t_apply = None
+        t_one = t_stats = t_apply = None
         nx = x.numel() * x.element_size()
         n_coef = 2 * batch * c * 4  # A and B, float32
         n_par = 2 * c * x.element_size() + (2 * batch * c * x.element_size() if ss else 0)
@@ -437,7 +462,9 @@ def main() -> None:
         if timed:
             xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view for the library call
             lib = (lambda: F.silu(F.group_norm(xc, groups, gamma, beta, eps))) if silu else (lambda: F.group_norm(xc, groups, gamma, beta, eps))
-            lib_ms = device_ms(lib)  # the whole GroupNorm: both kernels' work
+            lib_ms = device_ms(lib)  # the whole GroupNorm
+            t_one = {"ms": device_ms(lambda: kgn.group_norm(*args)), "plain_ms": device_ms(lambda: kgn.group_norm_plain(*args)),
+                     "library_ms": lib_ms}
             t_stats = {"ms": device_ms(lambda: kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh)),
                        "plain_ms": device_ms(lambda: kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh)),
                        "library_ms": lib_ms}
@@ -450,8 +477,9 @@ def main() -> None:
             if batch == CHECK_BATCHES[src][0]:
                 add("gn pair", src, "bfloat16", ms=pair["pair_ms"], plain_ms=pair["pair_plain_ms"], library_ms=lib_ms,
                     bytes_ms=pair["pair_bound_ms"], bound_ms=pair["pair_bound_ms"])
+        note("group_norm", e_one, src, batch, dtype, shape, tol, t_one, 2 * nx + n_par, 0.0, route=route)
         note("gn_stats", e_stats, src, batch, dtype, shape, 1e-3, t_stats, nx + n_par + n_coef, 0.0)
-        note("gn_apply", float(e_pair.max()), src, batch, dtype, shape, tol, t_apply, 2 * nx + n_coef, 0.0, **pair)
+        note("gn_apply", e_pair, src, batch, dtype, shape, tol, t_apply, 2 * nx + n_coef, 0.0, **pair)
 
     def attention_checks(src, batch, dtype, s, s_kv, heads, d, layout, kv_len):
         if layout == "separate":
@@ -559,7 +587,7 @@ def main() -> None:
     for src, ss in sets.items():
         for batch in CHECK_BATCHES[src]:
             for dtype in (torch.bfloat16, torch.float32):
-                for sig in ss["gn"]:
+                for sig in ss["group_norm"]:
                     gn_checks(src, batch, dtype, *sig)
                 for sig in ss["attention"]:
                     attention_checks(src, batch, dtype, *sig)
@@ -574,9 +602,10 @@ def main() -> None:
         if "ms" in r:
             f32 = f"  (SDPA backend {r['sdpa_backend']}, allow_tf32 {r['allow_tf32']}, bound at {r['bound_rate']})" \
                 if "sdpa_backend" in r else ""
+            route = f"  route {r['route']}" if r["kernel"] == "group_norm" else ""
             print(f"    {r['kernel']:<14} {r['model']:<4} {r['dtype']:<8} {str(r['shape']):<48} err {r['max_abs_err']:.3g}  "
                   f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound {r['bound_ms']:.4f}"
-                  f"{f32}", flush=True)
+                  f"{f32}{route}", flush=True)
     for r in rows:
         if "rel_l2" in r:
             limit = "rel L2 only" if r["tol"] is None else f"{r['tol']:.3g}"
@@ -584,7 +613,8 @@ def main() -> None:
             print(f"    {r['kernel']:<14} {r['model']:<5} {r['dtype']:<8} {str(r['shape']):<40} max|plain| {r['plain_max']:.4g}  "
                   f"err {r['max_abs_err']:.3g} (limit {limit})  rel L2 {r['rel_l2']:.3e}{route}", flush=True)
     print("[2] sums over each model's distinct shapes at its main-path batch, by dtype, ms (the GN library call, "
-          "F.group_norm(+silu), covers the pair; 'gn pair' times gn_stats + gn_apply back to back):", flush=True)
+          "F.group_norm(+silu), covers group_norm and the pair; 'gn pair' times gn_stats + gn_apply back to back):",
+          flush=True)
     for (what, src, dt), t in sums.items():
         by = "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes"
         print(f"    {what:<14} {src:<4} {dt:<8} {t['shapes']:>2} shapes  card {t['ms']:.4f}  plain {t['plain_ms']:.4f}  "
@@ -617,6 +647,7 @@ def main() -> None:
 
     # ---- phase 3: full-width ADM forward against float32 on the CPU ------
     check_counts(adm_fwd_counts, ADM_PATH, "ADM forward")
+    check_gn_one_launch(adm_gn_routes, "ADM forward")
     t0 = time.perf_counter()
     with torch.device("meta"):
         cpu_model = ADMUNet(cfg)
@@ -630,7 +661,7 @@ def main() -> None:
     adm_rel = rel_l2(out_adm[:1], ref)
     print(f"[3] ADM-128 forward ({n_params / 1e6:.1f}M params, bf16, batch 2): {adm_fwd_s:.2f} s first call; "
           f"image 0 vs float32 CPU (batch 1, {cpu_s:.1f} s): rel L2 {adm_rel:.3e} (limit 2e-2)", flush=True)
-    print(f"[3] kernels {json.dumps(adm_fwd_counts)}", flush=True)
+    print(f"[3] kernels {json.dumps(adm_fwd_counts)}; GroupNorm routes {json.dumps(adm_gn_routes)}", flush=True)
     if not adm_rel <= 2e-2:
         fail(f"ADM forward: relative L2 error {adm_rel} > 2e-2")
     details.update(n_params=n_params, forward_rel_l2=adm_rel, forward_launches=adm_fwd_counts)
@@ -669,8 +700,17 @@ def main() -> None:
     del model, res
 
     # ---- phase 5: full-width SD 1.5 UNet and VAE, forward and backward ---
-    check_counts(sd_fwd_counts, SD_PATH, "SD UNet forward")
+    check_counts(sd_fwd_counts, [k for k in SD_PATH if k not in ("gn_stats", "gn_apply")], "SD UNet forward")
     check_sd_routes(sd_fwd_routes, "SD UNet forward")
+    check_gn_one_launch(sd_gn_routes, "SD UNet forward")
+    # the VAE's GroupNorms: the pair exactly where the route rule sends a group
+    # beyond 8 blocks, which every 256x256 and 512x512 map is
+    vae_gn = [sig for name, sig in rec_vae.sigs if name == "group_norm"]
+    vae_pair = [sig for sig in vae_gn if kgn.route(1, sig[0] * sig[1], sig[2], sig[3], 4)[0] == "pair"]
+    if any(sig[0] * sig[1] >= 256 * 256 and sig not in vae_pair for sig in vae_gn):
+        fail(f"VAE decode: a GroupNorm over a 256x256 or larger map is routed to one launch: {vae_gn}")
+    if vae_gn_routes != {"one_launch": len(vae_gn) - len(vae_pair), "pair": len(vae_pair)} or not vae_pair:
+        fail(f"VAE decode: GroupNorm routes {vae_gn_routes}, expected {len(vae_pair)} pair of {len(vae_gn)}")
     if vae_counts["attention_long"] <= 0 or vae_counts["gn_apply"] <= 0:
         fail(f"VAE decode: kernels not launched {vae_counts}")
     if vae_routes["wide"] != vae_counts["attention_long"] or vae_routes["cuda_core"] or vae_routes["tensor_core"]:
@@ -704,7 +744,8 @@ def main() -> None:
           f"VAE decoder (float32) 32x32 latent: rel L2 {vae_rel:.3e} (limits: UNet 2e-2 and plain + 1e-3, VAE 1e-4)",
           flush=True)
     print(f"[5] kernels UNet {json.dumps(sd_fwd_counts)} VAE {json.dumps(vae_counts)}", flush=True)
-    print(f"[5] attention routes UNet {json.dumps(sd_fwd_routes)} VAE {json.dumps(vae_routes)}", flush=True)
+    print(f"[5] attention routes UNet {json.dumps(sd_fwd_routes)} VAE {json.dumps(vae_routes)}; GroupNorm routes UNet "
+          f"{json.dumps(sd_gn_routes)} VAE {json.dumps(vae_gn_routes)} (pair at {sorted(set(vae_pair))})", flush=True)
     if not (sd_rel <= 2e-2 and sd_rel <= sd_plain_rel + 1e-3):
         fail(f"SD UNet forward: relative L2 error {sd_rel} (plain versions {sd_plain_rel}; limits 2e-2 and plain + 1e-3)")
     if not vae_rel <= 1e-4:
@@ -720,14 +761,15 @@ def main() -> None:
     grad = input_grad()
     torch.cuda.synchronize()
     bwd_s = time.perf_counter() - t0
-    bwd_counts, bwd_routes = kernels.launch_counts(), kernels.route_counts()
+    bwd_counts, bwd_routes, bwd_gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
     with PlainKernels(wrapper_mods, plains):
         grad_plain = input_grad()
     torch.cuda.synchronize()
     if kernels.launch_counts() != bwd_counts:
         fail("backward check: the plain-version run launched a kernel")
-    check_counts(bwd_counts, SD_PATH, "SD backward")
+    check_counts(bwd_counts, [k for k in SD_PATH if k not in ("gn_stats", "gn_apply")], "SD backward")
     check_sd_routes(bwd_routes, "SD backward")
+    check_gn_one_launch(bwd_gn_routes, "SD backward")
     if not bool(torch.isfinite(grad).all()):
         fail("SD backward: non-finite input gradient")
     grad_rel = rel_l2(grad, grad_plain)
@@ -759,9 +801,12 @@ def main() -> None:
         out = pipe(cond, TorchNoise(cli.seed, dev), uncond_embeds=uncond)
         torch.cuda.synchronize()
         s_img = time.perf_counter() - t0
-        counts, routes = kernels.launch_counts(), kernels.route_counts()
+        counts, routes, gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
         check_counts(counts, SD_PATH, f"SD main path ({tag})")
         check_sd_routes(routes, f"SD main path ({tag})")
+        if gn_routes["pair"] != vae_gn_routes["pair"] or gn_routes["one_launch"] <= 0:
+            fail(f"SD main path ({tag}): GroupNorm routes {gn_routes}: the pair only for the one VAE decode's "
+                 f"{vae_gn_routes['pair']} large maps")
         if routes["wide"] < 1:
             fail(f"SD main path ({tag}): the VAE decode's attention did not take the wide route: {routes}")
         if tuple(out.images.shape) != (1, 512, 512, 3) or not bool(torch.isfinite(out.images).all()):
@@ -773,14 +818,17 @@ def main() -> None:
             fail(f"SD main path ({tag}): uncertainty mean {um}")
         print(f"[6] SD 1.5 main path ({tag} guidance): 512x512, 20 steps, CFG 7.5, window [0, 20), p 0.95, M=5: "
               f"{s_img:.2f} s per image on {card} (information, not a claim); uncertainty mean {um:.4e}", flush=True)
-        print(f"[6] kernels {json.dumps(counts)}; attention routes {json.dumps(routes)}", flush=True)
-        sd_runs[tag] = {"s_per_image": s_img, "launches": counts, "routes": routes, "uncertainty_mean": um}
+        print(f"[6] kernels {json.dumps(counts)}; attention routes {json.dumps(routes)}; GroupNorm routes "
+              f"{json.dumps(gn_routes)}", flush=True)
+        sd_runs[tag] = {"s_per_image": s_img, "launches": counts, "routes": routes, "gn_routes": gn_routes,
+                        "uncertainty_mean": um}
     details.update(sd_main_path=sd_runs)
 
     # ---- phase 7: full-width CIFAR-10 UNet forward -----------------------
     for name, want in CIFAR_FORWARD.items():
         if cifar_counts[name] != want:
             fail(f"CIFAR-10 forward: {cifar_counts[name]} {name} launches, want {want}")
+    check_gn_one_launch(cifar_gn_routes, "CIFAR-10 forward")
     if not bool(torch.isfinite(out_cifar).all()):
         fail("CIFAR-10 forward: non-finite output on the card")
     t0 = time.perf_counter()
@@ -799,7 +847,7 @@ def main() -> None:
           f"{cifar_fwd_s:.3f} s first call; image 0 vs float32 CPU with the direct conv ({cifar_cpu_s:.1f} s): rel L2 "
           f"{cifar_rel:.3e} (limit 2e-2); vs the same card forward with winograd=False: rel L2 {cifar_vs_direct:.3e}; "
           f"winograd=False vs float32 CPU: {direct_rel:.3e}", flush=True)
-    print(f"[7] kernels {json.dumps(cifar_counts)}", flush=True)
+    print(f"[7] kernels {json.dumps(cifar_counts)}; GroupNorm routes {json.dumps(cifar_gn_routes)}", flush=True)
     if not cifar_rel <= 2e-2:
         fail(f"CIFAR-10 forward: relative L2 error {cifar_rel} > 2e-2")
     details.update(cifar_params=n_cifar, cifar_forward_rel_l2=cifar_rel, cifar_vs_direct_rel_l2=cifar_vs_direct,

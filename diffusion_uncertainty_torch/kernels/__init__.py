@@ -3,7 +3,8 @@
 One module per kernel: the ctypes wrapper and its plain PyTorch version
 (taken for CPU tensors only); launches are counted by name in
 ``_build.LAUNCHES`` (``launch_counts``), attention launches also by route
-(``route_counts``). ``_build`` compiles ``csrc/*.cu`` with ``nvcc`` at first
+(``route_counts``) and GroupNorm calls by route (``gn_route_counts``).
+``_build`` compiles ``csrc/*.cu`` with ``nvcc`` at first
 use.
 """
 
@@ -22,6 +23,12 @@ def route_counts() -> dict[str, int]:
     return {name: attention.ROUTE_LAUNCHES[name] for name in attention.ROUTES}
 
 
+def gn_route_counts() -> dict[str, int]:
+    """GroupNorm calls by route (one_launch / pair) since the last reset."""
+    return {name: groupnorm.ROUTE_LAUNCHES[name] for name in groupnorm.ROUTES}
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
     attention.ROUTE_LAUNCHES.clear()
+    groupnorm.ROUTE_LAUNCHES.clear()

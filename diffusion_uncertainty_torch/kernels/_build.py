@@ -39,8 +39,9 @@ NVCC_FLAGS = (
 
 # launch counters: each wrapper adds one to its name where it launches its
 # kernel, and nowhere else (``attention_long``: attention over more than 2048
-# keys, the Pallas flash ``_kernel``'s regime)
-COUNTERS = ("gn_stats", "gn_apply", "attention", "attention_long", "avg_pool_2x2", "interleave_2x", "winograd")
+# keys, the Pallas flash ``_kernel``'s regime; ``group_norm``: the one-launch
+# GroupNorm)
+COUNTERS = ("group_norm", "gn_stats", "gn_apply", "attention", "attention_long", "avg_pool_2x2", "interleave_2x", "winograd")
 LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -3,10 +3,11 @@
 JAX counterpart: ``diffusion_uncertainty_tpu/ops/groupnorm.py``
 (``group_norm_silu``, ``_pallas_gn`` and its VJP ``_pallas_gn_bwd``). For CPU
 tensors the op runs its plain version, ``_reference_impl`` (two-pass float32
-statistics); for CUDA tensors it runs the Hopper kernel pair
-``kernels.groupnorm.gn_stats`` + ``gn_apply`` at every site, whatever the
-batch or channel count. The backward is autograd through
-``_reference_impl``, as ``_pallas_gn_bwd`` is ``jax.vjp`` of it.
+statistics); for CUDA tensors ``kernels.groupnorm.group_norm``: one launch of
+the Hopper cluster kernel, or the ``gn_stats`` + ``gn_apply`` pair for groups
+beyond 8 blocks (the route is chosen from the shape before the launch). The
+backward is autograd through ``_reference_impl``, as ``_pallas_gn_bwd`` is
+``jax.vjp`` of it.
 """
 
 from __future__ import annotations
@@ -36,11 +37,10 @@ def _reference_impl(x, gamma, beta, num_groups, eps, scale, shift, apply_silu):
 
 
 def _forward(x, gamma, beta, scale, shift, num_groups, eps, apply_silu):
-    """The kernel pair on a CUDA tensor, ``_reference_impl`` on the CPU."""
+    """The kernels on a CUDA tensor, ``_reference_impl`` on the CPU."""
     if x.device.type == "cpu":
         return _reference_impl(x, gamma, beta, num_groups, eps, scale, shift, apply_silu)
-    a, b = _k.gn_stats(x, gamma, beta, num_groups, eps, scale, shift)
-    return _k.gn_apply(x, a, b, apply_silu)
+    return _k.group_norm(x, gamma, beta, num_groups, eps, scale, shift, apply_silu)
 
 
 class _GroupNorm(torch.autograd.Function):

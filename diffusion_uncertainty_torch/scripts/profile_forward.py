@@ -34,7 +34,7 @@ TRACE = 3  # forwards traced by torch.profiler
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("attention (port kernel)", ("attention_kernel", "attention_tc_kernel", "attention_wide_kernel", "attention_combine_kernel")),
-    ("GN pair (port kernels)", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("GroupNorm (port kernels)", ("gn_fused_kernel", "gn_stats_kernel", "gn_apply_kernel")),
     ("interleave (port kernel)", ("interleave",)),
     ("avg-pool (port kernel)", ("avgpool", "avg_pool")),
     ("Winograd conv (port kernel)", ("winograd_kernel",)),

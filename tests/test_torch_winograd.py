@@ -103,6 +103,26 @@ def test_plain_matches_pallas_kernel(monkeypatch, shape, dt):
         np.testing.assert_allclose(got, ref, atol=2.0**-8 * ref_max, rtol=0)
 
 
+@pytest.mark.parametrize("c,k", [(128, 128), (64, 136), (32, 8)])
+def test_weight_transform_matches_jax(c, k):
+    """The tiled U, unpacked, is the JAX ``_weight_transform`` (bf16, exact:
+    both compute G g Gᵀ in float32 and round once), with zero columns from K
+    up to Kp; each 32 KB tile holds column b's four positions of 128 output x
+    32 input channels in 8 x 8 core matrices."""
+    rng = np.random.RandomState(c + k)
+    wt = _rand(rng, 3, 3, c, k, scale=0.05)
+    u = twk.weight_transform(_torch_w(wt))
+    assert u.shape == twk.u_shape(c, k) and u.dtype == torch.bfloat16 and u.is_contiguous()
+    want = np.asarray(wc._weight_transform(jnp.asarray(wt), k).astype(jnp.float32))[0]  # [16, C, K]
+    np.testing.assert_array_equal(twk.unpack_u(u, k).float().numpy(), want)
+    kp = u.shape[0] * twk.K_ALIGN
+    assert kp % 128 == 0 and kp >= k and not bool(twk.unpack_u(u, kp)[:, :, k:].any())
+    # tile (kb, cc, b), position a, core matrix (k/8, c/8), row k%8, column c%8
+    kk, cc, a, b = k - 1, c - 1, 2, 3
+    tile = u[kk // 128, cc // 32, b, a]
+    assert float(tile[(kk % 128) // 8, (cc % 32) // 8, kk % 8, cc % 8]) == float(want[4 * a + b, cc, kk])
+
+
 @pytest.mark.parametrize("res", [False, True])
 @pytest.mark.parametrize("shape", [(8, 8, 16, 128, 128), (8, 12, 32, 128, 256)])
 def test_plain_matches_direct_conv(shape, res):
@@ -158,12 +178,12 @@ def test_op_routes_by_shape_and_flag(monkeypatch):
 def test_conv3x3_caches_the_weight_transform():
     conv = Conv3x3(128, 128, winograd=True)
     u0 = conv.winograd_weights()
-    assert conv.winograd_weights() is u0 and u0.shape == (16, 128, 128) and u0.dtype == torch.bfloat16
+    assert conv.winograd_weights() is u0 and u0.shape == twk.u_shape(128, 128) and u0.dtype == torch.bfloat16
     with torch.no_grad():
         conv.weight.mul_(2.0)  # in place: the version changes
     u1 = conv.winograd_weights()
     assert u1 is not u0 and torch.equal(u1, twk.weight_transform(conv.weight))
-    assert conv.winograd_weights(0, 64).shape == (16, 64, 128)
+    assert conv.winograd_weights(0, 64).shape == twk.u_shape(64, 128) == (1, 2, 4, 4, 16, 4, 8, 8)
     assert not Conv3x3(128, 128, up2=True, winograd=True).winograd  # the up2 conv never takes the route
 
 
@@ -304,9 +324,12 @@ def cuda():
 def test_winograd_kernel_on_card(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     r = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dtype)  # noqa: E731
-    x, w, b, res = r(2, 8, 12, 128), r(136, 128, 3, 3) * 0.05, r(136), r(2, 8, 12, 136)
-    u = twk.weight_transform(w)
-    got = twk.winograd_conv(x, u, b.float(), res).float()
-    want = twk.winograd_conv_plain(x, u, b.float(), res).float()
-    tol = (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * float(want.abs().max())
-    assert float((got - want).abs().max()) <= tol
+    # K beyond one 128-channel block; 4x4 maps (one window stage, and one V/U
+    # stage in float32); a ragged tile grid (3 x 17 tiles) with C = 32, K = 8
+    for n, h, w_, c, k in ((2, 8, 12, 128, 136), (16, 4, 4, 256, 256), (1, 6, 34, 32, 8)):
+        x, w, b, res = r(n, h, w_, c), r(k, c, 3, 3) * 0.05, r(k), r(n, h, w_, k)
+        u = twk.weight_transform(w)
+        got = twk.winograd_conv(x, u, b.float(), res).float()
+        want = twk.winograd_conv_plain(x, u, b.float(), res).float()
+        tol = (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol, (n, h, w_, c, k)
