@@ -8,13 +8,24 @@ Phases (a failure in any of them ends the run with a non-zero exit):
 1. Build the hand-written Hopper kernels from ``diffusion_uncertainty_torch/
    kernels/csrc`` with nvcc (one process per source, in parallel); print the
    seconds, the card's name and power limit, and the registers and spills
-   of every attention, Winograd and GroupNorm kernel instance (ptxas).
+   of every attention, Winograd, GroupNorm, avg-pool and interleave kernel
+   instance (ptxas); a spill in any but attention fails the run.
 2. Hold every kernel against its plain PyTorch version on the card, at every
    shape the full-width models give it, recorded from the forwards of phases
    3, 5 and 7: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the CFG
    batch), the SD VAE decoder at batch 1 (64x64 latent) and the CIFAR-10 UNet
    at batch 128 (the CLI batch), in bfloat16 and float32. Tolerances:
-   interleave bit-exact; avg-pool within 1 bf16 ulp;
+   interleave bit-exact (the phase interleave, the nearest upsample and their
+   pair, at every interleave shape); avg-pool within 1 bf16 ulp (one tensor
+   and a pair); each prints its route (wide / narrow: 16-byte words or
+   narrower). The two are timed in
+   every form the ADM forward makes (a pair) and in their single forms at the
+   ADM shapes, and in the SD and CIFAR-10 forwards' single form, by
+   ``scripts/bench_resample.py`` ``measure``: besides ms, device_only_ms (the
+   calls captured in a CUDA graph) and host_us (the wrapper's host time a
+   call), and the bound counts both jobs of a pair; the sums take the form
+   each main path runs. A gradient through the CUDA avg-pool pair op must
+   equal the plain version's;
    GroupNorm (the routed ``group_norm`` call against ``group_norm_plain``, and
    the gn_stats + gn_apply pair at every shape too, against the op's
    reference) |kernel - plain| <= 2e-2 + 2^-7·|plain| in bf16 (the
@@ -46,10 +57,14 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    information, at the ADM-128 ResBlock conv shapes (batch 8) it can serve.
 3. The full-width ImageNet-128 ADM forward (421M parameters, random bf16
    weights N(0, 0.02), batch 2) on the card against the same weights in
-   float32 on the CPU at batch 1: relative L2 error of image 0 <= 2e-2.
+   float32 on the CPU at batch 1: relative L2 error of image 0 <= 2e-2. The
+   forward makes exactly 4 avg-pool and 4 interleave launches, each serving
+   a pair (one per down / up ResBlock), and is bit-identical to the same
+   forward with one launch per tensor (the pairs undone).
 4. ADM main path: 50 DDIM steps, uncertainty window [40, 50) with
    uncertainty_zigzag_centered (M=5, num_zigzag=3, members one after another),
-   bf16, batch 8; sample finite, maps (10, 8, 128, 128, 3) with positive mean.
+   bf16, batch 8; sample finite, maps (10, 8, 128, 128, 3) with positive mean;
+   4 paired avg-pool and 4 paired interleave launches per forward.
 5. The full-width SD 1.5 UNet forward (859.5M parameters, random bf16 weights
    N(0, 0.02) with norm scales 1, t=500, pseudo-text context [2, 77, 768],
    inputs rounded to bf16, batch 2) against float32 on the CPU at batch 1,
@@ -65,7 +80,8 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    VAE's float32 D=512 attention the wide route. Every UNet GroupNorm takes
    the one-launch route; the VAE's take it where 8 blocks hold the group and
    the pair elsewhere, every 256x256 and 512x512 map among them (phase 3
-   holds the ADM forward to the one-launch route the same way).
+   holds the ADM forward to the one-launch route the same way). The UNet
+   forward makes 3 interleave launches (its up-samplers).
 6. SD 1.5 main path, the CLI defaults: ``build_sd_stack`` +
    ``TextToImageUncertaintyPipeline``, 512x512, 20 DDIM steps, CFG 7.5,
    percentile guidance on steps [0, 20) at 0.95 with M=5, gradient branch (lr
@@ -93,7 +109,10 @@ Every forward of phases 3, 5 and 7 must launch each kernel of its model; each
 main path (phase 4, each run of phase 6, each run of phase 8) sets the launch counters to 0
 just before and reads them just after, and fails if a kernel of its path
 never launched. The last two lines are the kernels JSON (``launches``: the
-sum over the main-path runs) and the device JSON. ``--details`` writes every
+sum over the main-path runs; avg_pool_2x2 and interleave_2x also carry
+``device_only_ms``, ``host_us``, ``forms``, the form their sums take, and
+``single_form``, the sums of one tensor a launch at every shape) and the
+device JSON. ``--details`` writes every
 check, time and the ptxas report as JSON to PATH.
 """
 
@@ -118,6 +137,8 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 F32_ATTENTION_FLOPS, F32_ATTENTION_ARITH = 495e12 / 3, "3xTF32 (495/3 TFLOP/s)"
 # the batch each model's shapes are checked at; the first is the main path's
 CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,)}
+# the single form of the two resampling kernels, one tensor a launch
+RESAMPLE_FORMS = {"avg_pool_2x2": "single", "interleave_2x": "phase"}
 F32_MODELS = ("vae",)  # models whose main path runs in float32 (the SD VAE decoder)
 SRC = "diffusion_uncertainty_torch/kernels/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -131,6 +152,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "winograd": (SRC + "winograd.cu", "diffusion_uncertainty_tpu/ops/winograd_conv.py:154"),
 }
 ADM_PATH = ("group_norm", "attention", "avg_pool_2x2", "interleave_2x")
+# avg-pool and interleave launches of one ADM-128 forward: one pair per down
+# and per up ResBlock
+ADM_RESAMPLE = 4
 # the VAE decode's GroupNorms over its large maps take the pair
 SD_PATH = ("group_norm", "gn_stats", "gn_apply", "attention", "attention_long", "interleave_2x")
 CIFAR_PATH = ("group_norm", "attention", "interleave_2x", "winograd")
@@ -240,12 +264,16 @@ def signature(name, args):
             layout = "legacy" if q.stride(2) == 3 * d else "qkv"
         kv_len = args[3] if len(args) > 3 else None
         return (s, k.shape[1], h, d, layout, kv_len)
-    if name == "avg_pool_2x2":
-        return tuple(args[0].shape[1:])
     if name == "winograd_conv":
         res = args[3] if len(args) > 3 else None
         return tuple(args[0].shape[1:]) + (args[2].shape[0], res is not None)
-    return tuple(args[0].shape[1:]) + (args[0] is args[1],)
+    if name == "interleave_2x_pair":
+        return tuple(args[1].shape[1:])
+    return tuple(args[0].shape[1:])  # avg-pool (single or pair), interleave, nearest
+
+
+# recorded wrapper -> kernel family of phase 2
+FAMILY = {"avg_pool_2x2_pair": "avg_pool_2x2", "nearest_2x": "interleave_2x", "interleave_2x_pair": "interleave_2x"}
 
 
 def shape_sets(calls):
@@ -253,7 +281,7 @@ def shape_sets(calls):
     sets = {"group_norm": set(), "attention": set(), "avg_pool_2x2": set(), "interleave_2x": set(),
             "winograd_conv": set()}
     for name, sig in calls:
-        sets[name].add(sig)
+        sets[FAMILY.get(name, name)].add(sig)
     return {k: sorted(v, key=str) for k, v in sets.items()}
 
 
@@ -282,21 +310,26 @@ def main() -> None:
     from diffusion_uncertainty_torch.sampling import generate_uncertainty_dataset
     from diffusion_uncertainty_torch.scripts import generate_dataset_score_uncertainty as dataset_cli
     from diffusion_uncertainty_torch.scripts import generate_starting_points
+    from diffusion_uncertainty_torch.scripts.bench_resample import BOUND_INPUTS, measure
+    from diffusion_uncertainty_torch.models import adm_unet
+    from diffusion_uncertainty_torch.ops import avg_pool_2x2, avg_pool_2x2_pair, interleave_phases_2x, nearest_upsample_2x
     from diffusion_uncertainty_torch.ops.groupnorm import _reference_impl
     from diffusion_uncertainty_torch.pipelines import T2IPipelineConfig, TextToImageUncertaintyPipeline, pseudo_text_embeddings
     from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config as T2IConfig
     from diffusion_uncertainty_torch.scripts.generate_t2i_guided import build_sd_stack
     from diffusion_uncertainty_torch.uncertainty import EstimatorConfig, make_estimator
     from diffusion_uncertainty_torch.utils import TorchNoise
-    from diffusion_uncertainty_torch.utils.device import device_ms
+    from diffusion_uncertainty_torch.utils.device import device_ms, graph_ms, host_us
 
-    wrapper_mods = {"group_norm": kgn, "attention": katt, "avg_pool_2x2": kpool, "interleave_2x": kilv,
-                    "winograd_conv": kwino}
+    wrapper_mods = {"group_norm": kgn, "attention": katt, "avg_pool_2x2": kpool, "avg_pool_2x2_pair": kpool,
+                    "interleave_2x": kilv, "nearest_2x": kilv, "interleave_2x_pair": kilv, "winograd_conv": kwino}
     plains = {
         "group_norm": kgn.group_norm_plain, "attention": katt.attention_plain,
-        "avg_pool_2x2": kpool.avg_pool_2x2_plain, "interleave_2x": kilv.interleave_2x_plain,
-        "winograd_conv": kwino.winograd_conv_plain,
+        "avg_pool_2x2": kpool.avg_pool_2x2_plain, "avg_pool_2x2_pair": kpool.avg_pool_2x2_pair_plain,
+        "interleave_2x": kilv.interleave_2x_plain, "nearest_2x": kilv.nearest_2x_plain,
+        "interleave_2x_pair": kilv.interleave_2x_pair_plain, "winograd_conv": kwino.winograd_conv_plain,
     }
+    clocks = (device_ms, graph_ms, host_us)
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -310,13 +343,14 @@ def main() -> None:
     print(f"[1] build: {build_s:.1f} s ({', '.join(kernels.SOURCES)}) on {card}", flush=True)
     details["build_s"] = build_s
     details["ptxas"] = dict(kernels._build.build_logs)
-    for src in ("attention", "winograd", "groupnorm"):
+    for src in ("attention", "winograd", "groupnorm", "avgpool", "interleave"):
         for inst in kernels._build.ptxas_report(src):
             print(f"[1] ptxas {src} {inst}", flush=True)
-    spills = [f"{src}: {inst}" for src in ("winograd", "groupnorm") for inst in kernels._build.ptxas_report(src)
+    spills = [f"{src}: {inst}" for src in ("winograd", "groupnorm", "avgpool", "interleave")
+              for inst in kernels._build.ptxas_report(src)
               if not ("0 bytes spill stores" in inst and "0 bytes spill loads" in inst)]
     if spills:
-        fail(f"ptxas spills registers in a Winograd or GroupNorm kernel: {spills}")
+        fail(f"ptxas spills registers in a Winograd, GroupNorm, avg-pool or interleave kernel: {spills}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def check_counts(counts, path, what):
@@ -352,6 +386,7 @@ def main() -> None:
         torch.cuda.synchronize()
         adm_fwd_s = time.perf_counter() - t0
     adm_fwd_counts, adm_gn_routes = kernels.launch_counts(), kernels.gn_route_counts()
+    adm_resample = kernels.resample_counts()
 
     stack = build_sd_stack(T2IConfig(random_init=True), device=dev)
     unet, vae = stack.unet, stack.vae
@@ -407,12 +442,15 @@ def main() -> None:
                                           "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0})
         t["shapes"] += 1
         for key, val in vals.items():
-            t[key] += val
+            t[key] = t.get(key, 0.0) + val
 
     def rnd(*shape, dtype=torch.bfloat16, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale + shift).to(dtype)
 
-    def note(kernel, e, src, batch, dtype, shape, tol, times=None, n_bytes=0.0, flops=0.0, rate=BF16_FLOPS, **extra):
+    def note(kernel, e, src, batch, dtype, shape, tol, times=None, n_bytes=0.0, flops=0.0, rate=BF16_FLOPS, summed=True,
+             **extra):
+        """Record a check; its times go into the sums at the main-path batch
+        (and, where a kernel has several forms, for the form the path runs)."""
         err[kernel] = max(err[kernel], e)
         dt = str(dtype).split(".")[-1]
         row = {"kernel": kernel, "model": src, "batch": batch, "dtype": dt, "shape": shape,
@@ -420,7 +458,7 @@ def main() -> None:
         if times is not None:
             b_ms, o_ms = bound_ms(n_bytes, flops, rate)
             row.update(times, bytes_ms=b_ms, ops_ms=o_ms, bound_ms=max(b_ms, o_ms))
-            if batch == CHECK_BATCHES[src][0]:
+            if batch == CHECK_BATCHES[src][0] and summed:
                 add(kernel, src, dt, **times, bytes_ms=b_ms, ops_ms=o_ms, bound_ms=max(b_ms, o_ms))
         rows.append(row)
 
@@ -516,32 +554,43 @@ def main() -> None:
         note(name, e, src, batch, dtype, [batch, s, s_kv, heads, d, layout], tol, times, n_bytes,
              4.0 * batch * heads * s * n_keys * d, rate, plain_max=ref_max, rel_l2=rel, route=route, **extra)
 
+    def resample_times(kind, form, shape):
+        """(times, bytes moved, extras) of one form at one shape (bench_resample)."""
+        r = measure(kpool, kilv, kind, form, shape, gen, clocks)
+        times = {k: r[k] for k in ("ms", "plain_ms", "library_ms", "device_only_ms", "host_us")}
+        return times, BOUND_INPUTS[(kind, form)] * math.prod(shape) * 2, {"route": r["route"], "form": form}
+
     def pool_checks(src, batch, h, w, c):
-        x = rnd(batch, h, w, c)
-        y, ref = kpool.avg_pool_2x2(x), kpool.avg_pool_2x2_plain(x)
-        diff = (y.float() - ref.float()).abs()
-        if not bool((diff <= bf16_ulp(ref)).all()):
-            fail(f"avg_pool_2x2 disagrees by more than 1 bf16 ulp at {(src, batch, h, w, c)}")
-        xc = x.permute(0, 3, 1, 2)
-        times = {"ms": device_ms(lambda: kpool.avg_pool_2x2(x)), "plain_ms": device_ms(lambda: kpool.avg_pool_2x2_plain(x)),
-                 "library_ms": device_ms(lambda: F.avg_pool2d(xc, 2))}
-        n = x.numel() * x.element_size()
-        note("avg_pool_2x2", float(diff.max()), src, batch, torch.bfloat16, [batch, h, w, c], "1 ulp", times, n + n / 4, 0.0)
+        x, y = rnd(batch, h, w, c), rnd(batch, h, w, c)
+        kernels.reset_launch_counts()
+        got = (kpool.avg_pool_2x2(x), *kpool.avg_pool_2x2_pair(x, y))
+        route = "+".join(r for r, n in kernels.resample_counts()["avg_pool_2x2"].items() if n)
+        e = 0.0
+        for g, ref in zip(got, (kpool.avg_pool_2x2_plain(x), *kpool.avg_pool_2x2_pair_plain(x, y))):
+            diff = (g.float() - ref.float()).abs()
+            if not bool((diff <= bf16_ulp(ref)).all()):
+                fail(f"avg_pool_2x2 ({route}) disagrees by more than 1 bf16 ulp at {(src, batch, h, w, c)}")
+            e = max(e, float(diff.max()))
+        main = "pair" if src == "adm" else "single"
+        for form in ("single", "pair") if src == "adm" else ("single",):
+            times, nbytes, extra = resample_times("pool", form, (batch, h, w, c))
+            note("avg_pool_2x2", e, src, batch, torch.bfloat16, [batch, h, w, c, form], "1 ulp", times, nbytes, 0.0,
+                 summed=form == main, checked=route, **extra)
 
-    def interleave_checks(src, batch, h, w, c, same):
-        ys = [rnd(batch, h, w, c)] * 4 if same else [rnd(batch, h, w, c) for _ in range(4)]
-        if not torch.equal(kilv.interleave_2x(*ys), kilv.interleave_2x_plain(*ys)):
-            fail(f"interleave_2x is not bit-exact at {(src, batch, h, w, c)}")
-
-        def library():
-            st = torch.stack([torch.stack([ys[0], ys[1]]), torch.stack([ys[2], ys[3]])])
-            return st.permute(2, 3, 0, 4, 1, 5).reshape(batch, 2 * h, 2 * w, c)
-
-        times = {"ms": device_ms(lambda: kilv.interleave_2x(*ys)), "plain_ms": device_ms(lambda: kilv.interleave_2x_plain(*ys)),
-                 "library_ms": device_ms(library)}
-        n_in = ys[0].numel() * ys[0].element_size()
-        note("interleave_2x", 0.0, src, batch, torch.bfloat16, [batch, h, w, c, same], "exact", times,
-             (1 if same else 4) * n_in + 4 * n_in, 0.0)
+    def interleave_checks(src, batch, h, w, c):
+        ys, x = [rnd(batch, h, w, c) for _ in range(4)], rnd(batch, h, w, c)
+        kernels.reset_launch_counts()
+        phase, near, pair = kilv.interleave_2x(*ys), kilv.nearest_2x(x), kilv.interleave_2x_pair(ys, x)
+        route = "+".join(r for r, n in kernels.resample_counts()["interleave_2x"].items() if n)
+        want = (kilv.interleave_2x_plain(*ys), kilv.nearest_2x_plain(x))
+        if not (torch.equal(phase, want[0]) and torch.equal(near, want[1]) and torch.equal(pair[0], want[0])
+                and torch.equal(pair[1], want[1])):
+            fail(f"interleave_2x ({route}) is not bit-exact at {(src, batch, h, w, c)}")
+        main = "pair" if src == "adm" else "phase"
+        for form in ("phase", "nearest", "pair") if src == "adm" else ("phase",):
+            times, nbytes, extra = resample_times("interleave", form, (batch, h, w, c))
+            note("interleave_2x", 0.0, src, batch, torch.bfloat16, [batch, h, w, c, form], "exact", times, nbytes, 0.0,
+                 summed=form == main, checked=route, **extra)
 
     def winograd_checks(src, batch, dtype, h, w, c, k, has_res, timed=True, compare=True):
         x = rnd(batch, h, w, c, dtype=dtype)
@@ -597,14 +646,23 @@ def main() -> None:
                 pool_checks(src, batch, *sig)
             for sig in ss["interleave_2x"]:
                 interleave_checks(src, batch, *sig)
+    # a gradient through the CUDA avg-pool pair op against the plain version's
+    xa, xb = (rnd(2, 16, 16, 256, dtype=torch.float32).requires_grad_(True) for _ in range(2))
+    ct = rnd(2, 8, 8, 256, dtype=torch.float32)
+    g_op = torch.autograd.grad([(p * ct).sum() for p in avg_pool_2x2_pair(xa, xb)], (xa, xb))
+    g_plain = torch.autograd.grad([(p * ct).sum() for p in kpool.avg_pool_2x2_pair_plain(xa, xb)], (xa, xb))
+    if not all(torch.equal(u, v) for u, v in zip(g_op, g_plain)):
+        fail("avg_pool_2x2: the gradient through the CUDA op differs from the plain version's")
     torch.cuda.synchronize()
     for r in rows:
         if "ms" in r:
             f32 = f"  (SDPA backend {r['sdpa_backend']}, allow_tf32 {r['allow_tf32']}, bound at {r['bound_rate']})" \
                 if "sdpa_backend" in r else ""
-            route = f"  route {r['route']}" if r["kernel"] == "group_norm" else ""
+            route = f"  route {r['route']}" if r["kernel"] in ("group_norm", "avg_pool_2x2", "interleave_2x") else ""
+            only = (f"  device-only {r['device_only_ms']:.4f}  host {r['host_us']:.2f} us"
+                    if "device_only_ms" in r else "")
             print(f"    {r['kernel']:<14} {r['model']:<4} {r['dtype']:<8} {str(r['shape']):<48} err {r['max_abs_err']:.3g}  "
-                  f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound {r['bound_ms']:.4f}"
+                  f"{r['ms']:.4f} ms{only}  plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound {r['bound_ms']:.4f}"
                   f"{f32}{route}", flush=True)
     for r in rows:
         if "rel_l2" in r:
@@ -613,11 +671,12 @@ def main() -> None:
             print(f"    {r['kernel']:<14} {r['model']:<5} {r['dtype']:<8} {str(r['shape']):<40} max|plain| {r['plain_max']:.4g}  "
                   f"err {r['max_abs_err']:.3g} (limit {limit})  rel L2 {r['rel_l2']:.3e}{route}", flush=True)
     print("[2] sums over each model's distinct shapes at its main-path batch, by dtype, ms (the GN library call, "
-          "F.group_norm(+silu), covers group_norm and the pair; 'gn pair' times gn_stats + gn_apply back to back):",
-          flush=True)
+          "F.group_norm(+silu), covers group_norm and the pair; 'gn pair' times gn_stats + gn_apply back to back; "
+          "avg-pool and interleave: the form the model's forward runs, ADM's pairs):", flush=True)
     for (what, src, dt), t in sums.items():
         by = "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes"
-        print(f"    {what:<14} {src:<4} {dt:<8} {t['shapes']:>2} shapes  card {t['ms']:.4f}  plain {t['plain_ms']:.4f}  "
+        only = (f"  device-only {t['device_only_ms']:.4f}  host {t['host_us']:.2f} us" if "device_only_ms" in t else "")
+        print(f"    {what:<14} {src:<4} {dt:<8} {t['shapes']:>2} shapes  card {t['ms']:.4f}{only}  plain {t['plain_ms']:.4f}  "
               f"library {t['library_ms']:.4f}  bound {t['bound_ms']:.4f} ({by})", flush=True)
     print(f"[2] kernels agree with their plain versions at every shape: max errors {err}", flush=True)
 
@@ -648,6 +707,19 @@ def main() -> None:
     # ---- phase 3: full-width ADM forward against float32 on the CPU ------
     check_counts(adm_fwd_counts, ADM_PATH, "ADM forward")
     check_gn_one_launch(adm_gn_routes, "ADM forward")
+    for name in ("avg_pool_2x2", "interleave_2x"):
+        if adm_fwd_counts[name] != ADM_RESAMPLE or adm_resample[name]["pair"] != ADM_RESAMPLE:
+            fail(f"ADM forward: {adm_fwd_counts[name]} {name} launches ({adm_resample[name]}), want {ADM_RESAMPLE} pairs")
+    saved = adm_unet.avg_pool_2x2_pair, adm_unet.interleave_and_upsample_2x
+    adm_unet.avg_pool_2x2_pair = lambda h, x: (avg_pool_2x2(h), avg_pool_2x2(x))
+    adm_unet.interleave_and_upsample_2x = lambda ph, x: (interleave_phases_2x(*ph), nearest_upsample_2x(x))
+    try:
+        with torch.no_grad():
+            out_unpaired = model(x2, 500, y2)
+    finally:
+        adm_unet.avg_pool_2x2_pair, adm_unet.interleave_and_upsample_2x = saved
+    if not torch.equal(out_unpaired, out_adm):
+        fail("ADM forward: the paired resampling is not bit-identical to one launch per tensor")
     t0 = time.perf_counter()
     with torch.device("meta"):
         cpu_model = ADMUNet(cfg)
@@ -661,7 +733,8 @@ def main() -> None:
     adm_rel = rel_l2(out_adm[:1], ref)
     print(f"[3] ADM-128 forward ({n_params / 1e6:.1f}M params, bf16, batch 2): {adm_fwd_s:.2f} s first call; "
           f"image 0 vs float32 CPU (batch 1, {cpu_s:.1f} s): rel L2 {adm_rel:.3e} (limit 2e-2)", flush=True)
-    print(f"[3] kernels {json.dumps(adm_fwd_counts)}; GroupNorm routes {json.dumps(adm_gn_routes)}", flush=True)
+    print(f"[3] kernels {json.dumps(adm_fwd_counts)}; GroupNorm routes {json.dumps(adm_gn_routes)}; avg-pool and "
+          f"interleave launches {json.dumps(adm_resample)}; bit-identical to one launch per tensor", flush=True)
     if not adm_rel <= 2e-2:
         fail(f"ADM forward: relative L2 error {adm_rel} > 2e-2")
     details.update(n_params=n_params, forward_rel_l2=adm_rel, forward_launches=adm_fwd_counts)
@@ -673,17 +746,28 @@ def main() -> None:
     sched = make_schedule("linear", 1000, device=dev)
     scfg = SamplerConfig(num_inference_steps=50, after_step=40, num_steps_uc=10)
     est = make_estimator(EstimatorConfig(name="uncertainty_zigzag_centered", M=5, num_zigzag=3, ensemble_chunk=1))
-    model_fn = lambda x, t, _: model(x, t, yb)[..., :3]  # noqa: E731
+    forwards = [0]
+
+    def model_fn(x, t, _):
+        forwards[0] += 1
+        return model(x, t, yb)[..., :3]
+
     with torch.no_grad():
         model_fn(x_T, 999, None)  # warm-up at this batch
     torch.cuda.synchronize()
+    forwards[0] = 0
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = sample_ddim(model_fn, sched, x_T, TorchNoise(SEED + 1, dev), scfg, estimator=est)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    adm_launches = kernels.launch_counts()
+    adm_launches, resample = kernels.launch_counts(), kernels.resample_counts()
     check_counts(adm_launches, ADM_PATH, "ADM main path")
+    for name in ("avg_pool_2x2", "interleave_2x"):
+        want = ADM_RESAMPLE * forwards[0]
+        if adm_launches[name] != want or resample[name]["pair"] != want:
+            fail(f"ADM main path: {adm_launches[name]} {name} launches ({resample[name]}), want {want} pairs "
+                 f"({forwards[0]} forwards)")
     if not bool(torch.isfinite(res.sample.float()).all()):
         fail("ADM main path: non-finite sample")
     u = res.uncertainty
@@ -695,12 +779,15 @@ def main() -> None:
     ips = B / wall
     print(f"[4] ADM main path: 50 DDIM steps, zigzag M=5 x3 in [40, 50), bf16, batch {B}: {wall:.2f} s, "
           f"{ips:.4f} images/s on {card} (information, not a claim); uncertainty mean {u_mean:.4e}", flush=True)
-    print(f"[4] kernels {json.dumps(adm_launches)}", flush=True)
+    print(f"[4] kernels {json.dumps(adm_launches)} over {forwards[0]} forwards; avg-pool and interleave launches "
+          f"{json.dumps(resample)}", flush=True)
     details.update(main_path_s=wall, images_per_s=ips, main_path_launches=adm_launches, uncertainty_mean=u_mean)
     del model, res
 
     # ---- phase 5: full-width SD 1.5 UNet and VAE, forward and backward ---
     check_counts(sd_fwd_counts, [k for k in SD_PATH if k not in ("gn_stats", "gn_apply")], "SD UNet forward")
+    if sd_fwd_counts["interleave_2x"] != 3:
+        fail(f"SD UNet forward: {sd_fwd_counts['interleave_2x']} interleave launches, want 3 (its up-samplers)")
     check_sd_routes(sd_fwd_routes, "SD UNet forward")
     check_gn_one_launch(sd_gn_routes, "SD UNet forward")
     # the VAE's GroupNorms: the pair exactly where the route rule sends a group
@@ -921,12 +1008,23 @@ def main() -> None:
     for k, (src, replaces) in KERNELS.items():
         t = {key: sum(v[key] for (w, _, _), v in sums.items() if w == k)
              for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms")}
-        entries.append({
+        entry = {
             "name": k, "route": "cuda", "source": src, "replaces": replaces, "launches": launches[k],
             "max_abs_err": err[k], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes",
             "library_ms": t["library_ms"],
-        })
+        }
+        if k in RESAMPLE_FORMS:
+            # the sums above take the form each forward runs (ADM: a pair a
+            # launch); the single form, one tensor a shape, is summed beside it
+            single = [r for r in rows if r["kernel"] == k and r.get("form") == RESAMPLE_FORMS[k]
+                      and r["batch"] == CHECK_BATCHES[r["model"]][0]]
+            entry.update({key: sum(v[key] for (w, _, _), v in sums.items() if w == k)
+                          for key in ("device_only_ms", "host_us")},
+                         forms="ADM: pair (two tensors a launch); SD, CIFAR-10: single",
+                         single_form={key: sum(r[key] for r in single)
+                                      for key in ("ms", "device_only_ms", "host_us", "plain_ms", "library_ms", "bound_ms")})
+        entries.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,8 @@
 One module per kernel: the ctypes wrapper and its plain PyTorch version
 (taken for CPU tensors only); launches are counted by name in
 ``_build.LAUNCHES`` (``launch_counts``), attention launches also by route
-(``route_counts``) and GroupNorm calls by route (``gn_route_counts``).
+(``route_counts``), GroupNorm calls by route (``gn_route_counts``), and
+avg-pool and interleave launches by route and pairing (``resample_counts``).
 ``_build`` compiles ``csrc/*.cu`` with ``nvcc`` at first
 use.
 """
@@ -28,7 +29,14 @@ def gn_route_counts() -> dict[str, int]:
     return {name: groupnorm.ROUTE_LAUNCHES[name] for name in groupnorm.ROUTES}
 
 
+def resample_counts() -> dict[str, dict[str, int]]:
+    """avg-pool and interleave launches by route (wide / narrow) and those
+    that served two jobs (pair), since the last reset."""
+    return {counter: {name: k.ROUTE_LAUNCHES[name] for name in (*k.ROUTES, "pair")}
+            for counter, k in (("avg_pool_2x2", avgpool), ("interleave_2x", interleave))}
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
-    attention.ROUTE_LAUNCHES.clear()
-    groupnorm.ROUTE_LAUNCHES.clear()
+    for k in (attention, groupnorm, avgpool, interleave):
+        k.ROUTE_LAUNCHES.clear()

@@ -104,15 +104,31 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_TYPE_NAMES = {
+    "f": "float", "13__nv_bfloat16": "bf16", "5uint4": "uint4", "j": "u32", "t": "u16", "i": "int", "x": "i64",
+}
+
+
 def _kernel_name(mangled: str) -> str:
-    """'attention_tc_kernel<40,8>' from its mangled name (int, float and
-    bf16 template arguments); the mangled name where it does not parse."""
-    m = re.search(r"([A-Za-z_]+_kernel)(I(.*?)E)?Ev", mangled)
+    """'attention_tc_kernel<40,8>' from its mangled name (integer and bool
+    literals; float, bf16, uint4, unsigned, int and long long types); the
+    mangled name where it does not parse."""
+    m = re.search(r"([A-Za-z_]+_kernel)(I?)", mangled)
     if not m:
         return mangled
-    args = re.sub(r"Li(\d+)E", r"\1,", (m.group(3) or "").replace("13__nv_bfloat16", "B,").replace("f", "float,"))
-    args = args.replace("B,", "bf16,").rstrip(",")
-    return f"{m.group(1)}<{args}>" if args else m.group(1)
+    rest, args = mangled[m.end():], []
+    while m.group(2) and not rest.startswith("E"):
+        lit = re.match(r"L[ib](\d+)E", rest)
+        name = next((k for k in _TYPE_NAMES if rest.startswith(k)), None)
+        if lit:
+            args.append(lit.group(1))
+            rest = rest[lit.end():]
+        elif name:
+            args.append(_TYPE_NAMES[name])
+            rest = rest[len(name):]
+        else:
+            return mangled
+    return f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
 
 
 def ptxas_report(name: str) -> list[str]:
@@ -144,12 +160,15 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def dtype_code(t: torch.Tensor) -> int:
-    if t.dtype == torch.float32:
-        return 0
-    if t.dtype == torch.bfloat16:
-        return 1
-    raise TypeError(f"kernels take float32 or bfloat16 tensors, got {t.dtype}")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(t) -> int:
+    """The kernels' element-type code of a tensor or a dtype."""
+    code = _DTYPE_CODES.get(getattr(t, "dtype", t))
+    if code is None:
+        raise TypeError(f"kernels take float32 or bfloat16 tensors, got {getattr(t, 'dtype', t)}")
+    return code
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:

@@ -7,7 +7,11 @@ tree and parameter names are the reference's torch ``UNetModel``
 loads with ``load_state_dict``; ``convert.adm_state_dict_from_flax`` gives the
 same dict from the JAX package's parameters. The forward follows the JAX
 model: fused upsample+conv in the up ResBlocks, concat-free split-skip
-decoder blocks, float32 output.
+decoder blocks, float32 output. An up or down ResBlock resamples in one
+kernel launch: a down block pools h and its skip x together, an up block
+interleaves its four phase convs and upsamples its skip x together (only
+independent work is reordered, so the values are those of the separate
+calls).
 
 MC dropout: a forward given a noise source (``forward(..., noise=...)``)
 applies dropout (rate ``ADMUNetConfig.dropout``) after each ResBlock's output
@@ -33,7 +37,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fused_upsample import conv2d_nhwc, nearest_upsample_2x
+from ..ops.avgpool import avg_pool_2x2_pair
+from ..ops.fused_upsample import conv2d_nhwc, interleave_and_upsample_2x
 from ..ops.groupnorm import group_norm_silu
 from .layers import (
     AttentionBlock,
@@ -169,15 +174,15 @@ class ResBlock(nn.Module):
             h = group_norm_silu(x, gn_in.weight, gn_in.bias)
             if self.up:
                 # fused upsample+conv; the 1x1 skip commutes with nearest
-                # upsampling, so it runs at the low resolution
-                h = conv_in(h)
+                # upsampling, so it runs at the low resolution. The phase
+                # interleave and the skip's upsample are one kernel launch.
+                phases = conv_in.phases(h)
                 if self.skip_connection is not None:
                     x = self.skip_connection(x)
-                x = nearest_upsample_2x(x)
+                h, x = interleave_and_upsample_2x(phases, x)
             else:
                 if self.down:
-                    h = avg_pool_2x(h)
-                    x = avg_pool_2x(x)
+                    h, x = avg_pool_2x2_pair(h, x)  # one kernel launch
                 h = conv_in(h)
         else:
             c1, gs = split

@@ -19,7 +19,7 @@ import torch.nn as nn
 from ..kernels.winograd import weight_transform
 from ..ops.attention import dot_product_attention
 from ..ops.avgpool import avg_pool_2x2
-from ..ops.fused_upsample import conv2d_nhwc, conv3x3_nearest_up2
+from ..ops.fused_upsample import conv2d_nhwc, conv3x3_nearest_up2, conv3x3_nearest_up2_phases
 from ..ops.groupnorm import group_norm_silu
 from ..ops.winograd_conv import conv3x3_winograd, reference_conv, supports
 
@@ -150,6 +150,11 @@ class Conv3x3(Conv2d):
         if self.winograd and supports(x.shape, w.shape):
             return conv3x3_winograd(x, w, bias, res, use_kernel=True, u=self.winograd_weights(lo, hi))
         return reference_conv(x, w, bias, res)
+
+    def phases(self, x: torch.Tensor) -> list:
+        """The ``up2`` conv's four low-resolution phase convs, before their
+        interleave (``ops.fused_upsample.conv3x3_nearest_up2_phases``)."""
+        return conv3x3_nearest_up2_phases(x, self.weight, self.bias)
 
     def forward(self, x: torch.Tensor, res=None) -> torch.Tensor:
         if self.up2:

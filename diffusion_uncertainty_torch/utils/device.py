@@ -3,17 +3,18 @@
 No JAX counterpart: JAX places arrays on its default backend. The port's
 entry points (``make_schedule``, ``TorchNoise``, ``build_sd_stack``, the
 text-to-image CLI) run on the card unless the caller asks for the CPU; with
-no card they raise instead of falling back. ``device_ms`` times work on the
-card for the measurement scripts.
+no card they raise instead of falling back. ``device_ms``, ``graph_ms`` and
+``host_us`` time work on the card for the measurement scripts.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
-__all__ = ["resolve_device", "device_ms"]
+__all__ = ["resolve_device", "device_ms", "graph_ms", "host_us"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -40,3 +41,29 @@ def device_ms(fn, reps: int = 5, inner: int = 10) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e) / inner)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 5, inner: int = 10) -> float:
+    """``device_ms`` of ``inner`` calls of ``fn`` captured once in a CUDA graph
+    and timed by events around its replays: the device time without the
+    host's issue time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return device_ms(graph.replay, reps, 1) / inner
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds a call of ``fn`` takes to return (``calls`` back to
+    back after a warm-up call, no synchronize between them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6

@@ -23,7 +23,15 @@ from diffusion_uncertainty_torch.models import AutoencoderKLConfig as TAutoencod
 from diffusion_uncertainty_torch.models import SDUNet as TSDUNet
 from diffusion_uncertainty_torch.models import SDUNetConfig as TSDUNetConfig
 from diffusion_uncertainty_torch.models import autoencoder_kl_state_dict_from_flax, sd_unet_state_dict_from_flax
-from diffusion_uncertainty_torch.ops import dot_product_attention, group_norm_silu, interleave_phases_2x
+from diffusion_uncertainty_torch.ops import (
+    avg_pool_2x2,
+    avg_pool_2x2_pair,
+    dot_product_attention,
+    group_norm_silu,
+    interleave_and_upsample_2x,
+    interleave_phases_2x,
+    nearest_upsample_2x,
+)
 from diffusion_uncertainty_torch.pipelines.text_encoder import pseudo_text_embeddings as t_pseudo
 from diffusion_uncertainty_torch.scripts import generate_t2i_guided as tcli
 from diffusion_uncertainty_torch.utils import TorchNoise
@@ -214,27 +222,43 @@ def test_interleave_backward_matches_jax_vjp():
         ("group_norm", [(2, 4, 4, 64), (64,), (64,)]),
         ("attention", [(2, 16, 2, 40), (2, 24, 2, 40), (2, 24, 2, 40)]),
         ("interleave", [(2, 3, 4, 8)] * 4),
+        ("avg_pool", [(2, 4, 6, 8)]),
+        ("avg_pool_pair", [(2, 4, 6, 8)] * 2),
+        ("interleave_pair", [(2, 3, 4, 8)] * 5),
+        ("nearest", [(2, 3, 4, 8)]),
     ],
 )
 def test_ops_record_a_graph_only_when_a_gradient_is_needed(op, shapes):
     """With no input that needs a gradient (the no-grad sampling loops) an op
     calls its kernel wrapper directly and records nothing; with one it goes
-    through its ``autograd.Function``. Both give the same values."""
+    through its ``autograd.Function``. Both give the same values (every
+    output of a paired op)."""
     fn = {
         "group_norm": lambda x, g, b: group_norm_silu(x, g, b, 32, 1e-6),
         "attention": dot_product_attention,
         "interleave": interleave_phases_2x,
+        "avg_pool": avg_pool_2x2,
+        "avg_pool_pair": avg_pool_2x2_pair,
+        "interleave_pair": lambda *t: interleave_and_upsample_2x(t[:4], t[4]),
+        "nearest": nearest_upsample_2x,
     }[op]
     rng = np.random.RandomState(13)
     ins = [torch.from_numpy(_rand(rng, *s)) for s in shapes]
-    direct = fn(*ins)
-    assert direct.grad_fn is None
+
+    def outs(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    direct = outs(fn(*ins))
+    assert all(t.grad_fn is None for t in direct)
     with torch.no_grad():
-        assert fn(*(t.clone().requires_grad_(True) for t in ins)).grad_fn is None
-    recorded = fn(ins[0].clone().requires_grad_(True), *ins[1:])
-    assert type(recorded.grad_fn).__name__ == {"group_norm": "_GroupNormBackward", "attention": "_AttentionBackward",
-                                               "interleave": "_InterleaveBackward"}[op]
-    torch.testing.assert_close(recorded.detach(), direct, atol=0, rtol=0)
+        assert all(t.grad_fn is None for t in outs(fn(*(t.clone().requires_grad_(True) for t in ins))))
+    recorded = outs(fn(ins[0].clone().requires_grad_(True), *ins[1:]))
+    backward = {"group_norm": "_GroupNormBackward", "attention": "_AttentionBackward", "interleave": "_InterleaveBackward",
+                "avg_pool": "_AvgPoolBackward", "avg_pool_pair": "_AvgPoolPairBackward",
+                "interleave_pair": "_InterleaveUpsampleBackward", "nearest": "_NearestBackward"}[op]
+    for r, d in zip(recorded, direct):
+        assert type(r.grad_fn).__name__ == backward
+        torch.testing.assert_close(r.detach(), d, atol=0, rtol=0)
 
 
 def test_pseudo_text_embeddings_bit_identical():
