@@ -30,7 +30,9 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    the gn_stats + gn_apply pair at every shape too, against the op's
    reference) |kernel - plain| <= 2e-2 + 2^-7·|plain| in bf16 (the
    second term is one output rounding step where |y| > 2) and <= 1e-4 in f32,
-   each check printing its route (one launch or the pair); attention,
+   gn_stats's A, B within 1e-3 of its plain version's and bit-identical over
+   two calls, each check printing its route (one launch or the pair, and the
+   pair's word width); attention,
    scaled to the output (whose size falls as 1/sqrt(S_kv) for random inputs),
    max |kernel - plain| <= 2^-6·max|plain| (2 to 4 bf16 ulps of the largest
    output) and relative L2 <= 5e-3 in bf16, max |kernel - plain| <=
@@ -40,20 +42,24 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    the float32 summation order differs). Each attention check prints the
    route its launch took (tensor core, CUDA core, wide, split-combine).
    bfloat16 shapes are timed, and float32 shapes where a main path runs in
-   float32 (the VAE decoder's attention) (CUDA events, median after
-   warm-up): the kernel, its plain version, the one PyTorch call that
-   computes the same function (``F.scaled_dot_product_attention``,
-   ``F.avg_pool2d``, a stack/permute/reshape copy for the interleave,
-   ``F.conv2d`` on channels_last (+ the residual add) for the Winograd conv, and
-   ``F.group_norm`` (+``F.silu``) for GroupNorm: that one call covers
-   ``group_norm`` and both kernels of the pair, so it stands on all three
-   lines, and the pair is also timed back to back), and the bound: the larger of bytes
+   float32 (the VAE decoder's attention and GroupNorm, whose bf16 shapes are
+   then not timed) (CUDA events, median after warm-up): the kernel, its
+   plain version, the one PyTorch call that computes the same function
+   (``F.scaled_dot_product_attention``, ``F.avg_pool2d``, a
+   stack/permute/reshape copy for the interleave, ``F.conv2d`` on
+   channels_last (+ the residual add) for the Winograd conv,
+   ``F.group_norm`` (+``F.silu``) for ``group_norm``, ``torch.var_mean`` of
+   the [N, HW, G, gs] view over (1, 3) for ``gn_stats``, none for
+   ``gn_apply``'s FMA (+SiLU); the pair is also timed back to back beside
+   ``F.group_norm`` (+``F.silu``)), and the bound: the larger of bytes
    moved (each input read once, each output written once) / 3.35 TB/s and
    operations / 989 TFLOP/s (dense bf16; the Winograd conv counts its 2 x 16
    x tiles x C x K multiply-adds; float32 attention at 495/3 TFLOP/s, the
    rate of the wide kernel's 3xTF32 products, with the backend SDPA took and
    whether TF32 was allowed). The "sums" lines add each model's shapes by
-   dtype. The Winograd kernel is also timed, for
+   dtype; a GroupNorm shape is timed and summed only on the route it takes
+   on a main path (``group_norm`` where it takes one launch, ``gn_stats`` and
+   ``gn_apply`` where it takes the pair). The Winograd kernel is also timed, for
    information, at the ADM-128 ResBlock conv shapes (batch 8) it can serve.
 3. The full-width ImageNet-128 ADM forward (421M parameters, random bf16
    weights N(0, 0.02), batch 2) on the card against the same weights in
@@ -79,7 +85,8 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    launch (forward and backward) must take the tensor-core route, and the
    VAE's float32 D=512 attention the wide route. Every UNet GroupNorm takes
    the one-launch route; the VAE's take it where 8 blocks hold the group and
-   the pair elsewhere, every 256x256 and 512x512 map among them (phase 3
+   the pair elsewhere, every 256x256 and 512x512 map among them, 19 pairs a
+   decode, every pair launch on 16-byte words (phase 3
    holds the ADM forward to the one-launch route the same way). The UNet
    forward makes 3 interleave launches (its up-samplers).
 6. SD 1.5 main path, the CLI defaults: ``build_sd_stack`` +
@@ -155,7 +162,11 @@ ADM_PATH = ("group_norm", "attention", "avg_pool_2x2", "interleave_2x")
 # avg-pool and interleave launches of one ADM-128 forward: one pair per down
 # and per up ResBlock
 ADM_RESAMPLE = 4
-# the VAE decode's GroupNorms over its large maps take the pair
+# the VAE decode's GroupNorms over its large maps take the pair: 6 at
+# 128x128x512, 1 at 256x256x512, 5 at 256x256x256, 1 at 512x512x256, 6 at
+# 512x512x128 (a 64x64 latent)
+VAE_PAIRS = 19
+# the SD path: the UNet's kernels and the VAE decode's
 SD_PATH = ("group_norm", "gn_stats", "gn_apply", "attention", "attention_long", "interleave_2x")
 CIFAR_PATH = ("group_norm", "attention", "interleave_2x", "winograd")
 # launches of one CIFAR-10 UNet forward: 22 ResnetBlock2Ds x 2 convs; 2 GNs per
@@ -175,6 +186,10 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60,
     )
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 and r.stdout.strip() else "nvidia-smi: not available"
+
+
+def fmt_ms(t) -> str:
+    return "none" if t is None else f"{t:.4f}"
 
 
 def bound_ms(n_bytes: float, flops: float, rate: float = BF16_FLOPS) -> tuple[float, float]:
@@ -408,6 +423,7 @@ def main() -> None:
         img64 = vae.decode(z64)
         torch.cuda.synchronize()
     vae_counts, vae_routes, vae_gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
+    vae_pair_routes = kernels.gn_pair_route_counts()
 
     # the CIFAR-10 UNet with its Winograd route on, and the same seeded weights
     # with it off
@@ -438,8 +454,8 @@ def main() -> None:
     rows = []
 
     def add(what, src, dtype, **vals):
-        t = sums.setdefault((what, src, dtype), {"shapes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                                          "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0})
+        t = sums.setdefault((what, src, dtype), {"shapes": 0, "ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                                                 "bound_ms": 0.0})
         t["shapes"] += 1
         for key, val in vals.items():
             t[key] = t.get(key, 0.0) + val
@@ -463,7 +479,10 @@ def main() -> None:
         rows.append(row)
 
     def gn_checks(src, batch, dtype, h, w, c, groups, eps, ss, silu):
-        timed = dtype == torch.bfloat16
+        # timed in the type the model's main path runs in (the VAE decodes in
+        # float32), and only on the route the shape takes there: group_norm
+        # where it takes one launch, gn_stats and gn_apply where it takes the pair
+        timed = dtype == (torch.float32 if src in F32_MODELS else torch.bfloat16)
         x = rnd(batch, h, w, c, dtype=dtype)
         gamma, beta = rnd(c, dtype=dtype, scale=0.1, shift=1.0), rnd(c, dtype=dtype, scale=0.1)
         sc = rnd(batch, c, dtype=dtype, scale=0.1) if ss else None
@@ -472,9 +491,12 @@ def main() -> None:
         kernels.reset_launch_counts()
         y = kgn.group_norm(*args)
         route = "+".join(r for r, n in kernels.gn_route_counts().items() if n)
+        kernels.reset_launch_counts()
         a, b = kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh)
+        a2, b2 = kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh)
         ap_, bp_ = kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh)
         y_pair = kgn.gn_apply(x, a, b, silu)
+        pair_route = "+".join(r for r, n in kernels.gn_pair_route_counts().items() if n)
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
 
         def within(got, want):  # bf16: one output rounding step (2^-7 relative) on top of tol
@@ -487,10 +509,12 @@ def main() -> None:
         if not within(y, plain):
             fail(f"group_norm ({route}) disagrees with its plain version at {where}: max err {e_one}")
         if not within(y_pair, ref):
-            fail(f"GroupNorm pair disagrees at {where}: max err {e_pair}")
+            fail(f"GroupNorm pair ({pair_route}) disagrees at {where}: max err {e_pair}")
         e_stats = max(float((a - ap_).abs().max()), float((b - bp_).abs().max()))
         if e_stats > 1e-3:
             fail(f"gn_stats disagrees at {(src, batch, h, w, c, groups, eps)}: {e_stats}")
+        if not (torch.equal(a, a2) and torch.equal(b, b2)):
+            fail(f"gn_stats: two calls on one input differ at {(src, batch, h, w, c, groups, eps, dtype)}")
         shape = [batch, h, w, c, groups, eps, ss, silu]
         t_one = t_stats = t_apply = None
         nx = x.numel() * x.element_size()
@@ -501,23 +525,27 @@ def main() -> None:
             xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view for the library call
             lib = (lambda: F.silu(F.group_norm(xc, groups, gamma, beta, eps))) if silu else (lambda: F.group_norm(xc, groups, gamma, beta, eps))
             lib_ms = device_ms(lib)  # the whole GroupNorm
-            t_one = {"ms": device_ms(lambda: kgn.group_norm(*args)), "plain_ms": device_ms(lambda: kgn.group_norm_plain(*args)),
-                     "library_ms": lib_ms}
-            t_stats = {"ms": device_ms(lambda: kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh)),
-                       "plain_ms": device_ms(lambda: kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh)),
-                       "library_ms": lib_ms}
-            t_apply = {"ms": device_ms(lambda: kgn.gn_apply(x, a, b, silu)),
-                       "plain_ms": device_ms(lambda: kgn.gn_apply_plain(x, a, b, silu)),
-                       "library_ms": lib_ms}
-            pair = {"pair_ms": device_ms(lambda: kgn.gn_apply(x, *kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh), silu)),
-                    "pair_plain_ms": device_ms(lambda: kgn.gn_apply_plain(x, *kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh), silu)),
-                    "pair_bound_ms": bound_ms(2 * nx + n_par, 0.0)[0]}
-            if batch == CHECK_BATCHES[src][0]:
-                add("gn pair", src, "bfloat16", ms=pair["pair_ms"], plain_ms=pair["pair_plain_ms"], library_ms=lib_ms,
-                    bytes_ms=pair["pair_bound_ms"], bound_ms=pair["pair_bound_ms"])
+            if route == "one_launch":
+                t_one = {"ms": device_ms(lambda: kgn.group_norm(*args)),
+                         "plain_ms": device_ms(lambda: kgn.group_norm_plain(*args)), "library_ms": lib_ms}
+            else:
+                xv = x.view(batch, h * w, groups, c // groups)  # the statistics' one PyTorch call
+                t_stats = {"ms": device_ms(lambda: kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh)),
+                           "plain_ms": device_ms(lambda: kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh)),
+                           "library_ms": device_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0))}
+                t_apply = {"ms": device_ms(lambda: kgn.gn_apply(x, a, b, silu)),
+                           "plain_ms": device_ms(lambda: kgn.gn_apply_plain(x, a, b, silu))}  # no one call: FMA (+SiLU)
+                pair = {"pair_ms": device_ms(lambda: kgn.gn_apply(x, *kgn.gn_stats(x, gamma, beta, groups, eps, sc, sh), silu)),
+                        "pair_plain_ms": device_ms(lambda: kgn.gn_apply_plain(x, *kgn.gn_stats_plain(x, gamma, beta, groups, eps, sc, sh), silu)),
+                        "pair_library_ms": lib_ms, "pair_bound_ms": bound_ms(2 * nx + n_par, 0.0)[0]}
+                if batch == CHECK_BATCHES[src][0]:
+                    add("gn pair", src, str(dtype).split(".")[-1], ms=pair["pair_ms"], plain_ms=pair["pair_plain_ms"],
+                        library_ms=lib_ms, bytes_ms=pair["pair_bound_ms"], bound_ms=pair["pair_bound_ms"])
         note("group_norm", e_one, src, batch, dtype, shape, tol, t_one, 2 * nx + n_par, 0.0, route=route)
-        note("gn_stats", e_stats, src, batch, dtype, shape, 1e-3, t_stats, nx + n_par + n_coef, 0.0)
-        note("gn_apply", e_pair, src, batch, dtype, shape, tol, t_apply, 2 * nx + n_coef, 0.0, **pair)
+        note("gn_stats", e_stats, src, batch, dtype, shape, 1e-3, t_stats, nx + n_par + n_coef, 0.0, route=route,
+             pair_route=pair_route)
+        note("gn_apply", e_pair, src, batch, dtype, shape, tol, t_apply, 2 * nx + n_coef, 0.0, route=route,
+             pair_route=pair_route, **pair)
 
     def attention_checks(src, batch, dtype, s, s_kv, heads, d, layout, kv_len):
         if layout == "separate":
@@ -659,25 +687,29 @@ def main() -> None:
             f32 = f"  (SDPA backend {r['sdpa_backend']}, allow_tf32 {r['allow_tf32']}, bound at {r['bound_rate']})" \
                 if "sdpa_backend" in r else ""
             route = f"  route {r['route']}" if r["kernel"] in ("group_norm", "avg_pool_2x2", "interleave_2x") else ""
+            route += f"  {r['pair_route']}" if "pair_route" in r else ""
             only = (f"  device-only {r['device_only_ms']:.4f}  host {r['host_us']:.2f} us"
                     if "device_only_ms" in r else "")
+            pair = (f"  pair {r['pair_ms']:.4f} (plain {r['pair_plain_ms']:.4f}, F.group_norm+F.silu "
+                    f"{r['pair_library_ms']:.4f}, bound {r['pair_bound_ms']:.4f})" if "pair_ms" in r else "")
             print(f"    {r['kernel']:<14} {r['model']:<4} {r['dtype']:<8} {str(r['shape']):<48} err {r['max_abs_err']:.3g}  "
-                  f"{r['ms']:.4f} ms{only}  plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound {r['bound_ms']:.4f}"
-                  f"{f32}{route}", flush=True)
+                  f"{r['ms']:.4f} ms{only}  plain {r['plain_ms']:.4f}  library {fmt_ms(r.get('library_ms'))}  "
+                  f"bound {r['bound_ms']:.4f}{f32}{route}{pair}", flush=True)
     for r in rows:
         if "rel_l2" in r:
             limit = "rel L2 only" if r["tol"] is None else f"{r['tol']:.3g}"
             route = f"  route {r['route']}" if "route" in r else ""
             print(f"    {r['kernel']:<14} {r['model']:<5} {r['dtype']:<8} {str(r['shape']):<40} max|plain| {r['plain_max']:.4g}  "
                   f"err {r['max_abs_err']:.3g} (limit {limit})  rel L2 {r['rel_l2']:.3e}{route}", flush=True)
-    print("[2] sums over each model's distinct shapes at its main-path batch, by dtype, ms (the GN library call, "
-          "F.group_norm(+silu), covers group_norm and the pair; 'gn pair' times gn_stats + gn_apply back to back; "
-          "avg-pool and interleave: the form the model's forward runs, ADM's pairs):", flush=True)
+    print("[2] sums over each model's distinct shapes at its main-path batch, by dtype, ms (GroupNorm in the type "
+          "the path runs, on the route each shape takes there: group_norm beside F.group_norm(+silu), gn_stats beside "
+          "torch.var_mean, gn_apply beside none; 'gn pair' times gn_stats + gn_apply back to back beside "
+          "F.group_norm(+silu); avg-pool and interleave: the form the model's forward runs, ADM's pairs):", flush=True)
     for (what, src, dt), t in sums.items():
         by = "operations" if t["ops_ms"] > t["bytes_ms"] else "bytes"
         only = (f"  device-only {t['device_only_ms']:.4f}  host {t['host_us']:.2f} us" if "device_only_ms" in t else "")
         print(f"    {what:<14} {src:<4} {dt:<8} {t['shapes']:>2} shapes  card {t['ms']:.4f}{only}  plain {t['plain_ms']:.4f}  "
-              f"library {t['library_ms']:.4f}  bound {t['bound_ms']:.4f} ({by})", flush=True)
+              f"library {fmt_ms(t.get('library_ms'))}  bound {t['bound_ms']:.4f} ({by})", flush=True)
     print(f"[2] kernels agree with their plain versions at every shape: max errors {err}", flush=True)
 
     # information: the Winograd kernel at the ADM-128 ResBlock conv shapes it
@@ -796,8 +828,12 @@ def main() -> None:
     vae_pair = [sig for sig in vae_gn if kgn.route(1, sig[0] * sig[1], sig[2], sig[3], 4)[0] == "pair"]
     if any(sig[0] * sig[1] >= 256 * 256 and sig not in vae_pair for sig in vae_gn):
         fail(f"VAE decode: a GroupNorm over a 256x256 or larger map is routed to one launch: {vae_gn}")
-    if vae_gn_routes != {"one_launch": len(vae_gn) - len(vae_pair), "pair": len(vae_pair)} or not vae_pair:
-        fail(f"VAE decode: GroupNorm routes {vae_gn_routes}, expected {len(vae_pair)} pair of {len(vae_gn)}")
+    if vae_gn_routes != {"one_launch": len(vae_gn) - len(vae_pair), "pair": len(vae_pair)} or len(vae_pair) != VAE_PAIRS:
+        fail(f"VAE decode: GroupNorm routes {vae_gn_routes}, expected {len(vae_pair)} pair of {len(vae_gn)} "
+             f"({VAE_PAIRS} pairs)")
+    if vae_pair_routes != {"wide": 2 * VAE_PAIRS, "scalar": 0} or vae_counts["gn_stats"] != VAE_PAIRS:
+        fail(f"VAE decode: gn_stats / gn_apply launches {vae_counts} by route {vae_pair_routes}: want {VAE_PAIRS} "
+             f"of each, all on 16-byte words")
     if vae_counts["attention_long"] <= 0 or vae_counts["gn_apply"] <= 0:
         fail(f"VAE decode: kernels not launched {vae_counts}")
     if vae_routes["wide"] != vae_counts["attention_long"] or vae_routes["cuda_core"] or vae_routes["tensor_core"]:
@@ -832,7 +868,8 @@ def main() -> None:
           flush=True)
     print(f"[5] kernels UNet {json.dumps(sd_fwd_counts)} VAE {json.dumps(vae_counts)}", flush=True)
     print(f"[5] attention routes UNet {json.dumps(sd_fwd_routes)} VAE {json.dumps(vae_routes)}; GroupNorm routes UNet "
-          f"{json.dumps(sd_gn_routes)} VAE {json.dumps(vae_gn_routes)} (pair at {sorted(set(vae_pair))})", flush=True)
+          f"{json.dumps(sd_gn_routes)} VAE {json.dumps(vae_gn_routes)} (pair at {sorted(set(vae_pair))}, its launches "
+          f"by word {json.dumps(vae_pair_routes)})", flush=True)
     if not (sd_rel <= 2e-2 and sd_rel <= sd_plain_rel + 1e-3):
         fail(f"SD UNet forward: relative L2 error {sd_rel} (plain versions {sd_plain_rel}; limits 2e-2 and plain + 1e-3)")
     if not vae_rel <= 1e-4:
@@ -1006,8 +1043,10 @@ def main() -> None:
                 for k in names}
     entries = []
     for k, (src, replaces) in KERNELS.items():
-        t = {key: sum(v[key] for (w, _, _), v in sums.items() if w == k)
-             for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms")}
+        mine = [v for (w, _, _), v in sums.items() if w == k]
+        t = {key: sum(v[key] for v in mine) for key in ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms")}
+        # null where no PyTorch call computes the kernel's function (gn_apply)
+        t["library_ms"] = sum(v["library_ms"] for v in mine) if mine and all("library_ms" in v for v in mine) else None
         entry = {
             "name": k, "route": "cuda", "source": src, "replaces": replaces, "launches": launches[k],
             "max_abs_err": err[k], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -3,7 +3,8 @@
 One module per kernel: the ctypes wrapper and its plain PyTorch version
 (taken for CPU tensors only); launches are counted by name in
 ``_build.LAUNCHES`` (``launch_counts``), attention launches also by route
-(``route_counts``), GroupNorm calls by route (``gn_route_counts``), and
+(``route_counts``), GroupNorm calls by route (``gn_route_counts``), the
+GroupNorm pair's launches by word width (``gn_pair_route_counts``), and
 avg-pool and interleave launches by route and pairing (``resample_counts``).
 ``_build`` compiles ``csrc/*.cu`` with ``nvcc`` at first
 use.
@@ -29,6 +30,12 @@ def gn_route_counts() -> dict[str, int]:
     return {name: groupnorm.ROUTE_LAUNCHES[name] for name in groupnorm.ROUTES}
 
 
+def gn_pair_route_counts() -> dict[str, int]:
+    """gn_stats and gn_apply launches by their plan's route (wide: 16-byte
+    words; scalar: one element a load) since the last reset."""
+    return {name: groupnorm.PAIR_ROUTE_LAUNCHES[name] for name in groupnorm.PAIR_ROUTES}
+
+
 def resample_counts() -> dict[str, dict[str, int]]:
     """avg-pool and interleave launches by route (wide / narrow) and those
     that served two jobs (pair), since the last reset."""
@@ -40,3 +47,4 @@ def reset_launch_counts() -> None:
     _LAUNCHES.clear()
     for k in (attention, groupnorm, avgpool, interleave):
         k.ROUTE_LAUNCHES.clear()
+    groupnorm.PAIR_ROUTE_LAUNCHES.clear()

@@ -26,120 +26,269 @@
 //   until the grid of N G k blocks fills the 132 SMs.
 //
 // gn_stats + gn_apply (the pair, for groups beyond 8 blocks' 512 KB: the
-//   VAE's float32 maps of 128^2 and more):
-//   gn_stats  reads NHWC x once and reduces sum and sum^2 in float32 per
-//             (n, group), then folds gamma, beta and the optional (1+s), t
-//             into per-(n, c) coefficients A, B (float32 [N, C]), with the
-//             E[x^2] - E[x]^2 variance the JAX statistics path uses
-//             (groupnorm.py:168-181).
-//   gn_apply  one streaming pass: y = x * A[n,c] + B[n,c], optional SiLU,
-//             float32 FMA in registers, store in the input type.
-//   gn_stats runs one block per (n, group), so no reduction crosses blocks
-//   and the result does not depend on scheduling; 16-byte loads along C when
-//   the group's width allows them, warp-shuffle reductions. gn_apply is a
-//   grid-stride loop of 16-byte loads and stores along C; A and B are tiny
-//   and stay in L1/L2. Any C with C % G == 0 is taken: narrow or odd group
-//   widths take the scalar path.
+//   VAE's float32 maps of 128^2 and more). `_stats_kernel` (:454-506) and
+//   `_tiled_kernel` (:578-620) stream whole [tile, C] rows and keep
+//   per-channel sums, folding channels into groups only at the end; the
+//   pair does the same, spread over every SM.
+//   Both launch by kernels/groupnorm.py `plan`. A row of x is read as
+//   16-byte words (V elements), or as single elements where C's bytes or a
+//   pointer are not a multiple of 16 (the scalar route). A thread keeps one
+//   fixed word column of a row (`tile_w` threads a row, all of it where the
+//   row has at most a block's words) and a row phase (`phases` rows a block
+//   step); block (chunk, n) of `chunks` blocks an image takes rows chunk
+//   * phases + phase + k * chunks * phases, so the whole grid sweeps each
+//   image's rows in order, neighbouring threads on neighbouring addresses,
+//   with no index divided in a loop and 32-bit offsets wherever the image
+//   allows (`idx32`).
+//   gn_stats  one block an SM at batch 1, 4 rows in flight a thread: sums x
+//             and x^2 per channel in float32 registers, folds the row
+//             phases in shared memory and each group's channels in order,
+//             and writes the block's group partials to a float32 workspace
+//             [N, chunks, G, 2]. The last block of an image to finish
+//             (counted in a zeroed word that it resets) adds the image's
+//             partials in a fixed order by chunk index, never by arrival,
+//             so two calls give bit-identical A, B; then mean and
+//             1/sqrt(E[x^2] - E[x]^2 + eps) as the JAX statistics path
+//             (groupnorm.py:168-181, :490-494), and gamma, beta and the
+//             optional (1+s), t folded into per-(n, c) A, B (float32 [N, C]).
+//   gn_apply  32 blocks of 256 threads an SM, 2 rows in flight a thread:
+//             y = x * A[n,c] + B[n,c] (+SiLU in float32) stored in x's type,
+//             A and B of the thread's column in registers. It walks the
+//             rows in the reverse of gn_stats's sweep, so the rows read
+//             last, still in the 50 MB L2, are read first.
+//   Divisions in the pair are __fdividef (2 ulp): the IEEE division's slow
+//   path is a call, and its saved registers spilled.
+//   Bound: device memory (gn_stats reads x once; gn_apply reads x and writes
+//   y once).
 #include "common.cuh"
 
 using namespace du;
 
 namespace {
 
-constexpr int kStatsThreads = 512;
-constexpr int kApplyThreads = 256;
+constexpr int kStatsThreads = 512;  // threads of a gn_stats block (kernels/groupnorm.py STATS_THREADS)
+constexpr int kApplyThreads = 256;  // threads of a gn_apply block (kernels/groupnorm.py APPLY_THREADS)
+constexpr int kStatsRows = 4;  // rows a gn_stats thread has in flight
+constexpr int kApplyRows = 2;  // rows a gn_apply thread has in flight
+constexpr int kMaxPairC = 16384;  // channels the per-channel shared sums hold (kernels/groupnorm.py PAIR_MAX_C)
+// the pair's largest dynamic shared memory: gn_stats's per-channel sums
+constexpr int kPairMaxSmem = 2 * kMaxPairC * (int)sizeof(float);
 
-template <typename T, int V>
-__global__ void __launch_bounds__(kStatsThreads)
-gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                const float* __restrict__ beta, const float* __restrict__ scale,
-                const float* __restrict__ shift, float* __restrict__ A,
-                float* __restrict__ B, int HW, int C, int G, float eps) {
-  const int g = blockIdx.x;
-  const int n = blockIdx.y;
-  const int gs = C / G;
-  const T* base = x + (size_t)n * HW * C + (size_t)g * gs;
+// what turns an image's group sums into its per-channel A, B
+struct Fold {
+  const float* gamma;
+  const float* beta;
+  const float* scale;  // [N, C] or null
+  const float* shift;
+  float* A;
+  float* B;
+  float eps;
+};
 
-  float s1 = 0.f, s2 = 0.f;
-  const int vpr = gs / V;  // accesses per row of the group
-  const long long total = (long long)HW * vpr;
+// The rows first, first + step, ... below end: how many.
+__device__ __forceinline__ int row_count(int first, int end, int step) {
+  return first < end ? (end - 1 - first) / step + 1 : 0;
+}
+
+// Block-wide: image n's group sums from its partials `part` ([chunks][G][2]),
+// added in a fixed order by chunk index, then A, B of its C channels. red:
+// kThreads floats, tot: 2 G floats of shared memory.
+template <int kThreads>
+__device__ void fold_image(const float* part, int chunks, int HW, int C, int G, int n, const Fold& f, float* red,
+                           float* tot) {
+  const int tid = threadIdx.x;
+  const int E = 2 * G;
+  if (E <= kThreads) {
+    // thread (p, e) adds chunks p, p + P, ... of element e; then the P
+    // phases are added in order
+    const int P = kThreads / E;
+    const int e = tid % E, p = tid / E;
+    float s = 0.f;
+    if (p < P) {
 #pragma unroll 4
-  for (long long i = threadIdx.x; i < total; i += kStatsThreads) {
-    const long long row = i / vpr;
-    const int col = (int)(i - row * vpr) * V;
-    float v[V];
-    load_vec<T, V>(base + row * C + col, v);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      s1 += v[k];
-      s2 += v[k] * v[k];
+      for (int k = p; k < chunks; k += P) s += __ldcg(part + (size_t)k * E + e);
     }
-  }
-
-  __shared__ float r1[kStatsThreads / 32];
-  __shared__ float r2[kStatsThreads / 32];
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  if (lane == 0) {
-    r1[wid] = s1;
-    r2[wid] = s2;
-  }
-  __syncthreads();
-  if (wid == 0) {
-    s1 = lane < kStatsThreads / 32 ? r1[lane] : 0.f;
-    s2 = lane < kStatsThreads / 32 ? r2[lane] : 0.f;
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      r1[0] = s1;
-      r2[0] = s2;
+    red[tid] = s;
+    __syncthreads();
+    if (tid < E) {
+      float t = 0.f;
+      for (int q = 0; q < P; ++q) t += red[q * E + tid];
+      tot[tid] = t;
+    }
+  } else {
+    for (int e = tid; e < E; e += kThreads) {
+      float t = 0.f;
+      for (int k = 0; k < chunks; ++k) t += __ldcg(part + (size_t)k * E + e);
+      tot[e] = t;
     }
   }
   __syncthreads();
-
+  const int gs = C / G;
   const float cnt = (float)HW * (float)gs;
-  const float mean = r1[0] / cnt;
-  const float var = r2[0] / cnt - mean * mean;
-  const float inv = rsqrtf(var + eps);
-  for (int j = threadIdx.x; j < gs; j += kStatsThreads) {
-    const int c = g * gs + j;
+  for (int c = tid; c < C; c += kThreads) {
+    const int g = c / gs;
+    const float mean = __fdividef(tot[2 * g], cnt);
+    const float var = __fdividef(tot[2 * g + 1], cnt) - mean * mean;
+    const float inv = rsqrtf(var + f.eps);
     const size_t nc = (size_t)n * C + c;
-    float a = inv * gamma[c];
-    float b = beta[c] - mean * a;
-    if (scale != nullptr) {
-      const float one_s = 1.f + scale[nc];
+    float a = inv * f.gamma[c];
+    float b = f.beta[c] - mean * a;
+    if (f.scale != nullptr) {
+      const float one_s = 1.f + f.scale[nc];
       a *= one_s;
-      b = b * one_s + shift[nc];
+      b = b * one_s + f.shift[nc];
     }
-    A[nc] = a;
-    B[nc] = b;
+    f.A[nc] = a;
+    f.B[nc] = b;
   }
 }
 
-template <typename T, int V, bool kSilu>
-__global__ void __launch_bounds__(kApplyThreads)
-gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ A,
-                const float* __restrict__ B, T* __restrict__ y, long long n_access,
-                int C, long long HWC) {
-  const long long stride = (long long)gridDim.x * kApplyThreads;
-  for (long long i = (long long)blockIdx.x * kApplyThreads + threadIdx.x; i < n_access;
-       i += stride) {
-    const long long e = i * V;
-    const long long n = e / HWC;
-    const int c = (int)(e % C);
-    const float* a = A + n * C + c;
-    const float* b = B + n * C + c;
-    float v[V];
-    load_vec<T, V>(x + e, v);
+// Block (chunk, n) sums its rows per channel and writes its group partials;
+// the last block of image n to finish (counted in counters[n], which it
+// resets for the next launch) folds the image's partials into A, B.
+template <typename T, int V, typename I>
+__global__ void __launch_bounds__(kStatsThreads)
+gn_stats_kernel(const T* __restrict__ x, float* __restrict__ ws, unsigned int* __restrict__ counters, Fold f, int HW,
+                int C, int G, int tile_w, int phases) {
+  extern __shared__ float chan[];  // [2][C]: the block's per-channel sums of x and x^2
+  __shared__ float red[2][kStatsThreads * V];
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x, chunks = gridDim.x, n = blockIdx.y;
+  const int cpr = C / V;  // words of a row
+  const int col0 = tid % tile_w, phase = tid / tile_w;
+  const int first = chunk * phases + phase;
+  const int rstep = chunks * phases;
+  const int cnt = phase < phases ? row_count(first, HW, rstep) : 0;
+  const T* img = x + (size_t)n * HW * C;
+  const I step = (I)rstep * C;
+  for (int cb = 0; cb < cpr; cb += tile_w) {
+    const int col = cb + col0;
+    float s1[V], s2[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) s1[k] = s2[k] = 0.f;
+    if (col < cpr) {
+      I off = (I)first * C + (I)col * V;
+      int i = 0;
+      for (; i + kStatsRows <= cnt; i += kStatsRows) {
+        float v[kStatsRows][V];
+#pragma unroll
+        for (int u = 0; u < kStatsRows; ++u) load_vec<T, V>(img + off + u * step, v[u]);
+        off += kStatsRows * step;
+#pragma unroll
+        for (int u = 0; u < kStatsRows; ++u)
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            s1[k] += v[u][k];
+            s2[k] = fmaf(v[u][k], v[u][k], s2[k]);
+          }
+      }
+      for (; i < cnt; ++i) {
+        float v[V];
+        load_vec<T, V>(img + off, v);
+        off += step;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          s1[k] += v[k];
+          s2[k] = fmaf(v[k], v[k], s2[k]);
+        }
+      }
+    }
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      float t = fmaf(v[k], a[k], b[k]);
-      if (kSilu) t = t / (1.f + expf(-t));
-      v[k] = t;
+      red[0][tid * V + k] = s1[k];
+      red[1][tid * V + k] = s2[k];
     }
-    store_vec<T, V>(y + e, v);
+    __syncthreads();
+    // thread (phase, col0) wrote channel col0 * V + k of the tile at
+    // (phase * tile_w + col0) * V + k: add the phases in order
+    const int tile_ch = min(tile_w, cpr - cb) * V;
+    for (int j = tid; j < tile_ch; j += kStatsThreads) {
+      float a = 0.f, b = 0.f;
+      for (int p = 0; p < phases; ++p) {
+        a += red[0][p * tile_w * V + j];
+        b += red[1][p * tile_w * V + j];
+      }
+      chan[cb * V + j] = a;
+      chan[C + cb * V + j] = b;
+    }
+    __syncthreads();
+  }
+  const int gs = C / G;
+  float* part = ws + (size_t)n * chunks * 2 * G;  // image n's [chunks][G][2]
+  for (int g = tid; g < G; g += kStatsThreads) {
+    float a = 0.f, b = 0.f;
+    for (int j = g * gs; j < (g + 1) * gs; ++j) {
+      a += chan[j];
+      b += chan[C + j];
+    }
+    part[((size_t)chunk * G + g) * 2] = a;
+    part[((size_t)chunk * G + g) * 2 + 1] = b;
+  }
+  __threadfence();  // the partials are visible to every block before the count
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + n, 1u) == (unsigned int)(chunks - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  fold_image<kStatsThreads>(part, chunks, HW, C, G, n, f, &red[0][0], chan);
+  if (tid == 0) counters[n] = 0;  // ready for the next launch on the stream
+}
+
+// y = x A + B (+SiLU) over the rows of block (chunk, n), both walked in the
+// reverse of gn_stats's sweep
+template <typename T, int V, typename I, bool kSilu>
+__global__ void __launch_bounds__(kApplyThreads)
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ A, const float* __restrict__ B, T* __restrict__ y,
+                int HW, int C, int tile_w, int phases) {
+  const int tid = threadIdx.x;
+  const int chunks = gridDim.x;
+  const int blk = chunks * gridDim.y - 1 - (blockIdx.y * chunks + blockIdx.x);
+  const int n = blk / chunks, chunk = blk - n * chunks;
+  const int col0 = tid % tile_w, phase = tid / tile_w;
+  if (phase >= phases) return;
+  const int first = chunk * phases + phase;
+  const int rstep = chunks * phases;
+  const int cnt = row_count(first, HW, rstep);
+  const int cpr = C / V;
+  const size_t img = (size_t)n * HW * C;
+  const T* xi = x + img;
+  T* yi = y + img;
+  const I st = -(I)rstep * C;
+  for (int col = col0; col < cpr; col += tile_w) {
+    float a[V], b[V];
+    load_vec<float, V>(A + (size_t)n * C + col * V, a);
+    load_vec<float, V>(B + (size_t)n * C + col * V, b);
+    I off = (I)(first + (cnt - 1) * rstep) * C + (I)col * V;  // this thread's last row
+    int i = 0;
+    for (; i + kApplyRows <= cnt; i += kApplyRows) {
+      float v[kApplyRows][V];
+#pragma unroll
+      for (int u = 0; u < kApplyRows; ++u) load_vec<T, V>(xi + off + u * st, v[u]);
+#pragma unroll
+      for (int u = 0; u < kApplyRows; ++u) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          float t = fmaf(v[u][k], a[k], b[k]);
+          if (kSilu) t = __fdividef(t, 1.f + expf(-t));
+          v[u][k] = t;
+        }
+        store_vec<T, V>(yi + off + u * st, v[u]);
+      }
+      off += kApplyRows * st;
+    }
+    for (; i < cnt; ++i) {
+      float v[V];
+      load_vec<T, V>(xi + off, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        float t = fmaf(v[k], a[k], b[k]);
+        if (kSilu) t = __fdividef(t, 1.f + expf(-t));
+        v[k] = t;
+      }
+      store_vec<T, V>(yi + off, v);
+      off += st;
+    }
   }
 }
 
@@ -352,40 +501,61 @@ int launch_fused(const void* x, const void* gamma, const void* beta, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int launch_stats(const void* x, const float* gamma, const float* beta, const float* scale,
-                 const float* shift, float* A, float* B, int N, int HW, int C, int G,
-                 float eps, int vec, cudaStream_t stream) {
-  dim3 grid(G, N);
-  constexpr int V = 16 / sizeof(T);
-  if (vec)
-    gn_stats_kernel<T, V><<<grid, kStatsThreads, 0, stream>>>(
-        static_cast<const T*>(x), gamma, beta, scale, shift, A, B, HW, C, G, eps);
-  else
-    gn_stats_kernel<T, 1><<<grid, kStatsThreads, 0, stream>>>(
-        static_cast<const T*>(x), gamma, beta, scale, shift, A, B, HW, C, G, eps);
+template <typename T, int V, typename I>
+int launch_stats_v(const void* x, float* ws, unsigned int* counters, const Fold& f, int N, int HW, int C, int G,
+                   int chunks, int tile_w, int phases, cudaStream_t s) {
+  auto kern = gn_stats_kernel<T, V, I>;
+  static bool attr_set = false;  // one attribute call per instance: per-channel sums beyond 48 KB
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kPairMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const size_t smem = 2 * (size_t)C * sizeof(float);
+  kern<<<dim3((unsigned int)chunks, (unsigned int)N), kStatsThreads, smem, s>>>(static_cast<const T*>(x), ws, counters,
+                                                                                f, HW, C, G, tile_w, phases);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int V>
-int launch_apply_v(const void* x, const float* A, const float* B, void* y, long long total,
-                   int C, long long HWC, int silu, cudaStream_t stream) {
-  const long long n_access = total / V;
-  const unsigned int blocks = stream_blocks(n_access, kApplyThreads);
+template <typename T>
+int launch_stats(const void* x, float* ws, unsigned int* counters, const Fold& f, int N, int HW, int C, int G,
+                 int chunks, int tile_w, int phases, int vec, int idx32, cudaStream_t s) {
+  constexpr int W = 16 / sizeof(T);
+  if (vec && idx32) return launch_stats_v<T, W, int>(x, ws, counters, f, N, HW, C, G, chunks, tile_w, phases, s);
+  if (vec) return launch_stats_v<T, W, long long>(x, ws, counters, f, N, HW, C, G, chunks, tile_w, phases, s);
+  if (idx32) return launch_stats_v<T, 1, int>(x, ws, counters, f, N, HW, C, G, chunks, tile_w, phases, s);
+  return launch_stats_v<T, 1, long long>(x, ws, counters, f, N, HW, C, G, chunks, tile_w, phases, s);
+}
+
+template <typename T, int V, typename I>
+int launch_apply_v(const void* x, const float* A, const float* B, void* y, int N, int HW, int C, int chunks,
+                   int tile_w, int phases, int silu, cudaStream_t s) {
+  const dim3 grid((unsigned int)chunks, (unsigned int)N);
+  auto xt = static_cast<const T*>(x);
+  auto yt = static_cast<T*>(y);
   if (silu)
-    gn_apply_kernel<T, V, true><<<blocks, kApplyThreads, 0, stream>>>(
-        static_cast<const T*>(x), A, B, static_cast<T*>(y), n_access, C, HWC);
+    gn_apply_kernel<T, V, I, true><<<grid, kApplyThreads, 0, s>>>(xt, A, B, yt, HW, C, tile_w, phases);
   else
-    gn_apply_kernel<T, V, false><<<blocks, kApplyThreads, 0, stream>>>(
-        static_cast<const T*>(x), A, B, static_cast<T*>(y), n_access, C, HWC);
+    gn_apply_kernel<T, V, I, false><<<grid, kApplyThreads, 0, s>>>(xt, A, B, yt, HW, C, tile_w, phases);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_apply(const void* x, const float* A, const float* B, void* y, long long total,
-                 int C, long long HWC, int silu, int vec, cudaStream_t stream) {
-  if (vec) return launch_apply_v<T, 16 / sizeof(T)>(x, A, B, y, total, C, HWC, silu, stream);
-  return launch_apply_v<T, 1>(x, A, B, y, total, C, HWC, silu, stream);
+int launch_apply(const void* x, const float* A, const float* B, void* y, int N, int HW, int C, int chunks,
+                 int tile_w, int phases, int silu, int vec, int idx32, cudaStream_t s) {
+  constexpr int W = 16 / sizeof(T);
+  if (vec && idx32) return launch_apply_v<T, W, int>(x, A, B, y, N, HW, C, chunks, tile_w, phases, silu, s);
+  if (vec) return launch_apply_v<T, W, long long>(x, A, B, y, N, HW, C, chunks, tile_w, phases, silu, s);
+  if (idx32) return launch_apply_v<T, 1, int>(x, A, B, y, N, HW, C, chunks, tile_w, phases, silu, s);
+  return launch_apply_v<T, 1, long long>(x, A, B, y, N, HW, C, chunks, tile_w, phases, silu, s);
+}
+
+// the launch geometry of a pair kernel of `threads` threads, as
+// kernels/groupnorm.py `plan` gives it
+bool pair_geometry_ok(int N, int HW, int C, int chunks, int tile_w, int phases, int threads, int vec, int dtype) {
+  const int V = vec ? (dtype == kF32 ? 4 : 8) : 1;
+  return N >= 1 && N <= 65535 && HW >= 1 && C >= 1 && C <= kMaxPairC && C % V == 0 && chunks >= 1 && tile_w >= 1 &&
+         phases >= 1 && tile_w * phases <= threads && (tile_w == C / V || phases == 1);
 }
 
 }  // namespace
@@ -412,29 +582,39 @@ extern "C" int du_group_norm(const void* x, const void* gamma, const void* beta,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int du_gn_stats(const void* x, const void* gamma, const void* beta,
-                           const void* scale, const void* shift, void* A, void* B, int N,
-                           int HW, int C, int G, float eps, int dtype, int vec,
-                           void* stream) {
+// A, B (float32 [N, C]) of GN over x [N, HW, C] in G groups: `chunks` blocks
+// an image write their group partials to ws [N, chunks, G, 2], and the last
+// of them folds the image's partials (counters: N words, zero before the
+// launch and zero after it). vec: 16-byte words; idx32: offsets within an
+// image fit in 32 bits.
+extern "C" int du_gn_stats(const void* x, const void* gamma, const void* beta, const void* scale, const void* shift,
+                           void* A, void* B, void* ws, void* counters, int N, int HW, int C, int G, int chunks,
+                           int tile_w, int phases, float eps, int dtype, int vec, int idx32, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto g = static_cast<const float*>(gamma);
-  auto bt = static_cast<const float*>(beta);
-  auto sc = static_cast<const float*>(scale);
-  auto sh = static_cast<const float*>(shift);
-  auto a = static_cast<float*>(A);
-  auto b = static_cast<float*>(B);
-  if (dtype == kF32) return launch_stats<float>(x, g, bt, sc, sh, a, b, N, HW, C, G, eps, vec, s);
+  if (G < 1 || C % G || counters == nullptr ||
+      !pair_geometry_ok(N, HW, C, chunks, tile_w, phases, kStatsThreads, vec, dtype))
+    return (int)cudaErrorInvalidValue;
+  const Fold f{static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<const float*>(scale),
+               static_cast<const float*>(shift),  static_cast<float*>(A),           static_cast<float*>(B),
+               eps};
+  auto w = static_cast<float*>(ws);
+  auto cnt = static_cast<unsigned int*>(counters);
+  if (dtype == kF32) return launch_stats<float>(x, w, cnt, f, N, HW, C, G, chunks, tile_w, phases, vec, idx32, s);
   if (dtype == kBF16)
-    return launch_stats<__nv_bfloat16>(x, g, bt, sc, sh, a, b, N, HW, C, G, eps, vec, s);
+    return launch_stats<__nv_bfloat16>(x, w, cnt, f, N, HW, C, G, chunks, tile_w, phases, vec, idx32, s);
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int du_gn_apply(const void* x, const void* A, const void* B, void* y, long long total,
-                           int C, long long HWC, int silu, int dtype, int vec, void* stream) {
+// y = x A + B (+SiLU), `chunks` blocks an image walking its rows in reverse
+extern "C" int du_gn_apply(const void* x, const void* A, const void* B, void* y, int N, int HW, int C, int chunks,
+                           int tile_w, int phases, int silu, int dtype, int vec, int idx32, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (!pair_geometry_ok(N, HW, C, chunks, tile_w, phases, kApplyThreads, vec, dtype))
+    return (int)cudaErrorInvalidValue;
   auto a = static_cast<const float*>(A);
   auto b = static_cast<const float*>(B);
-  if (dtype == kF32) return launch_apply<float>(x, a, b, y, total, C, HWC, silu, vec, s);
-  if (dtype == kBF16) return launch_apply<__nv_bfloat16>(x, a, b, y, total, C, HWC, silu, vec, s);
+  if (dtype == kF32) return launch_apply<float>(x, a, b, y, N, HW, C, chunks, tile_w, phases, silu, vec, idx32, s);
+  if (dtype == kBF16)
+    return launch_apply<__nv_bfloat16>(x, a, b, y, N, HW, C, chunks, tile_w, phases, silu, vec, idx32, s);
   return (int)cudaErrorInvalidValue;
 }

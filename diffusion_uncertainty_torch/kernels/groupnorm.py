@@ -8,16 +8,21 @@ launch of the cluster kernel (route ``one_launch``, counted as
 else the pair ``gn_stats`` (per-(n, c) coefficients) + ``gn_apply`` (one FMA
 pass, optional SiLU), route ``pair``. The route is decided from the shape
 before any launch (``route``) and counted per call in ``ROUTE_LAUNCHES``.
-Each wrapper takes its plain PyTorch version for a tensor on the CPU and
-launches its kernel for a CUDA tensor; launches are counted in
-``_build.LAUNCHES``.
+The pair's kernels launch by ``plan`` (16-byte words or single elements,
+blocks over whole pixel rows of every SM), counted by its route in
+``PAIR_ROUTE_LAUNCHES``; ``gn_stats`` folds across blocks in one launch,
+through a workspace allocated per call and a count kept per device, so the
+pair serves one stream at a time (the port's). Each wrapper takes its plain
+PyTorch version for a tensor on the CPU and launches its kernel for a CUDA
+tensor; launches are counted in ``_build.LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,7 +30,8 @@ from . import _build
 
 __all__ = [
     "group_norm", "group_norm_plain", "gn_stats", "gn_apply", "gn_stats_plain", "gn_apply_plain", "route", "piece_bytes",
-    "GN_BLOCK_BYTES", "GN_MAX_CLUSTER", "ROUTES", "ROUTE_LAUNCHES",
+    "GN_BLOCK_BYTES", "GN_MAX_CLUSTER", "ROUTES", "ROUTE_LAUNCHES", "plan", "PairPlan", "PAIR_ROUTES",
+    "PAIR_ROUTE_LAUNCHES",
 ]
 
 GN_THREADS = 256  # threads of a one-launch block (csrc kFusedThreads)
@@ -36,6 +42,13 @@ GN_BLOCK_BYTES = 64 * 1024
 GN_MAX_CLUSTER = 8  # the portable cluster size
 GN_MAX_GROUP_WIDTH = 512  # channels of a group the kernel's coefficient table holds
 NUM_SMS = 132  # H100 SXM
+STATS_THREADS = 512  # threads of a gn_stats block (csrc kStatsThreads)
+APPLY_THREADS = 256  # threads of a gn_apply block (csrc kApplyThreads)
+PAIR_MAX_C = 16384  # channels the pair takes (csrc kMaxPairC: per-channel sums in shared memory)
+PAIR_ROUTES = ("wide", "scalar")
+# gn_stats and gn_apply launches by the plan's route
+PAIR_ROUTE_LAUNCHES: collections.Counter = collections.Counter()
+_COUNTERS: dict = {}  # device -> gn_stats's last-block counts
 
 ROUTES = ("one_launch", "pair")
 # GroupNorm calls by route: ``one_launch`` is one ``group_norm`` launch,
@@ -50,9 +63,9 @@ _L = ctypes.c_longlong
 def _lib():
     lib = _build.load("groupnorm")
     if not getattr(lib, "_typed", False):
-        lib.du_gn_stats.argtypes = [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _I, _P]
+        lib.du_gn_stats.argtypes = [_P] * 9 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P]
         lib.du_gn_stats.restype = _I
-        lib.du_gn_apply.argtypes = [_P] * 4 + [_L, _I, _L, _I, _I, _I, _P]
+        lib.du_gn_apply.argtypes = [_P] * 4 + [_I] * 10 + [_P]
         lib.du_gn_apply.restype = _I
         lib.du_group_norm.argtypes = [_P] * 6 + [_I] * 7 + [_L, _L, ctypes.c_float] + [_I] * 5 + [_P]
         lib.du_group_norm.restype = _I
@@ -92,6 +105,53 @@ def _f32(t: torch.Tensor, shape) -> torch.Tensor:
     return t.to(torch.float32).reshape(shape).contiguous()
 
 
+class PairPlan(NamedTuple):
+    """The launch geometry of ``gn_stats`` or ``gn_apply`` over [n, hw, c]."""
+
+    route: str  # "wide": 16-byte words; "scalar": one element a load
+    vec: int  # elements of a word (16 // elem_size, or 1)
+    threads: int  # threads of a block
+    chunks: int  # blocks of an image; block k takes rows k·phases + p + j·chunks·phases
+    blocks: int  # n · chunks
+    tile_w: int  # threads along a row: one word column each
+    phases: int  # rows a block covers in one step
+    idx32: bool  # offsets within an image fit in 32 bits
+
+
+# (threads of a block, blocks an SM) of each kernel of the pair
+PAIR_GRID = {"gn_stats": (STATS_THREADS, 1), "gn_apply": (APPLY_THREADS, 32)}
+
+
+@functools.lru_cache(maxsize=None)
+def plan(kernel: str, n: int, hw: int, c: int, elem_size: int, ptr_bits: int = 0) -> PairPlan:
+    """The plan of ``kernel`` ("gn_stats" or "gn_apply"): ``wide`` where a
+    row's bytes and every pointer (``ptr_bits``: their bitwise or) are
+    multiples of 16, else ``scalar``; a row's words over ``tile_w`` threads
+    (all of them where the row has at most a block's words) and the block's
+    threads over ``phases`` rows; ``chunks`` blocks an image, so that the n
+    images' blocks fill ``PAIR_GRID``'s blocks on each of the 132 SMs (at
+    most one block per ``phases`` rows)."""
+    if c > PAIR_MAX_C:
+        raise ValueError(f"gn_stats / gn_apply: at most {PAIR_MAX_C} channels, got {c}")
+    threads, per_sm = PAIR_GRID[kernel]
+    wide = (c * elem_size) % 16 == 0 and ptr_bits % 16 == 0
+    vec = 16 // elem_size if wide else 1
+    tile_w = min(c // vec, threads)
+    phases = threads // tile_w
+    chunks = max(1, min(-(-NUM_SMS * per_sm // n), -(-hw // phases)))
+    idx32 = (hw + 2 * chunks * phases) * c < 2**31
+    return PairPlan("wide" if wide else "scalar", vec, threads, chunks, n * chunks, tile_w, phases, idx32)
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """n zeroed words on the device for gn_stats's last-block count (each
+    launch leaves them zero again); kept per device and grown as needed."""
+    t = _COUNTERS.get(device)
+    if t is None or t.numel() < n:
+        t = _COUNTERS[device] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return t
+
+
 def gn_stats(
     x: torch.Tensor,
     gamma: torch.Tensor,
@@ -101,6 +161,9 @@ def gn_stats(
     scale: Optional[torch.Tensor] = None,
     shift: Optional[torch.Tensor] = None,
 ):
+    """``gn_stats_plain``'s A, B: one launch of ``plan("gn_stats", ...)``'s
+    blocks, which sum their rows and the last of which folds them in a fixed
+    order (bit-identical from call to call)."""
     if x.device.type == "cpu":
         return gn_stats_plain(x, gamma, beta, num_groups, eps, scale, shift)
     n, h, w, c = x.shape
@@ -111,24 +174,27 @@ def gn_stats(
     sc = sh = None
     if scale is not None:
         sc, sh = _f32(scale, (n, c)), _f32(shift, (n, c))
+    p = plan("gn_stats", n, h * w, c, x.element_size(), x.data_ptr() % 16)
     a = torch.empty((n, c), dtype=torch.float32, device=x.device)
     b = torch.empty_like(a)
-    gs_bytes = (c // num_groups) * x.element_size()
-    vec = gs_bytes % 16 == 0 and (c * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+    ws = torch.empty((n, p.chunks, num_groups, 2), dtype=torch.float32, device=x.device)
     lib = _lib()
     err = lib.du_gn_stats(
         x.data_ptr(), g.data_ptr(), bt.data_ptr(),
         None if sc is None else sc.data_ptr(), None if sh is None else sh.data_ptr(),
-        a.data_ptr(), b.data_ptr(), n, h * w, c, num_groups, float(eps),
-        _build.dtype_code(x), int(vec), _build.stream_ptr(x),
+        a.data_ptr(), b.data_ptr(), ws.data_ptr(), _counters(x.device, n).data_ptr(),
+        n, h * w, c, num_groups, p.chunks, p.tile_w, p.phases, float(eps),
+        _build.dtype_code(x), int(p.route == "wide"), int(p.idx32), _build.stream_ptr(x),
     )
     _build.check(lib, err, "gn_stats")
     _build.LAUNCHES["gn_stats"] += 1
+    PAIR_ROUTE_LAUNCHES[p.route] += 1
     return a, b
 
 
-
 def gn_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, apply_silu: bool = True) -> torch.Tensor:
+    """``gn_apply_plain``'s y: one launch of ``plan("gn_apply", ...)``'s
+    blocks, walking x's rows in the reverse of ``gn_stats``'s sweep."""
     if x.device.type == "cpu":
         return gn_apply_plain(x, a, b, apply_silu)
     n, h, w, c = x.shape
@@ -139,15 +205,16 @@ def gn_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, apply_silu: bool
     _build.require_cuda("gn_apply", x, a, b)
     a, b = a.contiguous(), b.contiguous()
     y = torch.empty_like(x)
-    per = 16 // x.element_size()
-    vec = c % per == 0 and x.data_ptr() % 16 == 0
+    bits = (x.data_ptr() | y.data_ptr() | a.data_ptr() | b.data_ptr()) % 16
+    p = plan("gn_apply", n, h * w, c, x.element_size(), bits)
     lib = _lib()
     err = lib.du_gn_apply(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(), c, h * w * c,
-        int(apply_silu), _build.dtype_code(x), int(vec), _build.stream_ptr(x),
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), n, h * w, c, p.chunks, p.tile_w, p.phases,
+        int(apply_silu), _build.dtype_code(x), int(p.route == "wide"), int(p.idx32), _build.stream_ptr(x),
     )
     _build.check(lib, err, "gn_apply")
     _build.LAUNCHES["gn_apply"] += 1
+    PAIR_ROUTE_LAUNCHES[p.route] += 1
     return y
 
 

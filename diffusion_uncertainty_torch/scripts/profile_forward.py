@@ -2,6 +2,8 @@
 
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model sd15 --batch 2 [--json PATH]
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model cifar10 --batch 128 --winograd 1
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model vae --batch 1
+    PYTHONPATH=<another checkout> python <this file> --model vae --batch 1
 
 No JAX counterpart (the JAX package's profiles are TPU traces). Builds the
 model with seeded random bf16 weights (``generate_t2i_guided.init_random_``;
@@ -9,11 +11,14 @@ model with seeded random bf16 weights (``generate_t2i_guided.init_random_``;
 ``adm128``: ImageNet-128 ADM, t=500; ``cifar10``: the DDPM CIFAR-10 UNet from
 ``factory.instantiate_model_scheduler(random_init=True)``, t=500, its
 ResnetBlock2D convs on the Winograd kernel with ``--winograd 1`` and on
-cuDNN with ``--winograd 0``), times ``ITERS`` forwards on the host
+cuDNN with ``--winograd 0``; ``vae``: the SD KL-VAE decoder in float32, as
+the text-to-image CLI runs it, one decode of a 64x64 latent to a 512x512
+image), times ``ITERS`` forwards on the host
 clock (ending in a synchronize), then traces ``TRACE`` more with
 ``torch.profiler`` and prints the device time
 per forward by kernel family and the largest kernels, the device's busy
-share of the wall time and the kernel launches per forward.
+share of the wall time and the kernel launches per forward. Run by its path
+with another checkout first on the path, it profiles that checkout's port.
 """
 
 from __future__ import annotations
@@ -25,16 +30,17 @@ from collections import defaultdict
 
 import torch
 
-from ..models import ADMUNet, ADMUNetConfig
-from ..pipelines import pseudo_text_embeddings
-from .generate_t2i_guided import Config, build_sd_stack, init_random_
+from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, AutoencoderKL, AutoencoderKLConfig
+from diffusion_uncertainty_torch.pipelines import pseudo_text_embeddings
+from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config, _build, build_sd_stack, init_random_
 
 ITERS = 10  # forwards timed on the host clock
 TRACE = 3  # forwards traced by torch.profiler
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("attention (port kernel)", ("attention_kernel", "attention_tc_kernel", "attention_wide_kernel", "attention_combine_kernel")),
-    ("GroupNorm (port kernels)", ("gn_fused_kernel", "gn_stats_kernel", "gn_apply_kernel")),
+    ("GroupNorm pair (port kernels)", ("gn_stats_kernel", "gn_fold_kernel", "gn_apply_kernel")),
+    ("GroupNorm one launch (port kernel)", ("gn_fused_kernel",)),
     ("interleave (port kernel)", ("interleave",)),
     ("avg-pool (port kernel)", ("avgpool", "avg_pool")),
     ("Winograd conv (port kernel)", ("winograd_kernel",)),
@@ -57,7 +63,7 @@ def build(model: str, batch: int, device, winograd: bool = False):
     """(forward closure, parameter count) with seeded random bf16 weights."""
     gen = torch.Generator(device=device).manual_seed(0)
     if model == "cifar10":
-        from ..factory import instantiate_model_scheduler
+        from diffusion_uncertainty_torch.factory import instantiate_model_scheduler
 
         net = instantiate_model_scheduler("cifar10", dropout=0.1, random_init=True, device=device, winograd=winograd).model
         x = torch.randn(batch, 32, 32, 3, generator=gen, device=device)
@@ -75,12 +81,17 @@ def build(model: str, batch: int, device, winograd: bool = False):
         x = torch.randn(batch, 128, 128, 3, generator=gen, device=device).to(torch.bfloat16)
         y = torch.randint(0, cfg.num_classes, (batch,), generator=gen, device=device)
         return (lambda: net(x, 500, y)), sum(p.numel() for p in net.parameters())
-    raise SystemExit(f"unknown model {model!r}: sd15 | adm128 | cifar10")
+    if model == "vae":
+        # as build_sd_stack makes it for the CLI
+        vae = _build(lambda: AutoencoderKL(AutoencoderKLConfig.sd_kl_ema()), None, 1, device, torch.float32)
+        z = torch.randn(batch, 64, 64, vae.cfg.embed_dim, generator=gen, device=device)
+        return (lambda: vae.decode(z)), sum(p.numel() for p in vae.parameters())
+    raise SystemExit(f"unknown model {model!r}: sd15 | adm128 | cifar10 | vae")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Profile one full-width forward on the card.")
-    ap.add_argument("--model", default="sd15", help="sd15 | adm128 | cifar10")
+    ap.add_argument("--model", default="sd15", help="sd15 | adm128 | cifar10 | vae")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--winograd", type=int, default=0, help="cifar10: 1 runs the ResnetBlock2D convs on the Winograd kernel")
     ap.add_argument("--json", help="write the breakdown as JSON to this path")

@@ -1,6 +1,9 @@
-"""The one-launch GroupNorm of the port: its plain version against the JAX
-Pallas ``_kernel`` (interpret mode) and ``_reference_impl``, float32 on the
-CPU, and its route rule at the shapes of the ported models.
+"""The GroupNorm kernels of the port, float32 on the CPU: the one-launch
+kernel's plain version against the JAX Pallas ``_kernel`` (interpret mode)
+and ``_reference_impl``, and its route rule at the shapes of the ported
+models; the ``gn_stats`` + ``gn_apply`` pair's launch plan at the VAE's pair
+maps, a mirror of its chunked statistics against ``gn_stats_plain``, and the
+port's statistics against the JAX ``_stats_kernel`` (interpret mode).
 
 ``kernels.groupnorm.group_norm_plain`` repeats the cluster kernel's
 arithmetic (E[x²] − E[x]² statistics in float32, y = x·A + B, SiLU). The
@@ -207,3 +210,158 @@ def test_group_norm_kernel_on_card(cuda, dtype):
     y = kgn.group_norm(*args)
     assert kernels.gn_route_counts() == {"one_launch": 0, "pair": 1} and kernels.launch_counts()["group_norm"] == 0
     assert close(y, kgn.group_norm_plain(*args).float())
+
+
+# ---- the gn_stats + gn_apply pair ----------------------------------------
+
+VAE_PAIR_SITES = [s for s in VAE_SITES if kgn.route(1, s[0] * s[1], s[2], s[3], 4)[0] == "pair"]
+
+
+@pytest.mark.parametrize("elem_size", [4, 2])
+@pytest.mark.parametrize("h,w,c,g", VAE_PAIR_SITES)
+def test_pair_plan_is_wide_and_fills_the_card_at_vae_sites(h, w, c, g, elem_size):
+    """float32 and bf16 at batch 1: both kernels on 16-byte words, every SM
+    given its share of blocks (one gn_stats block, 32 gn_apply blocks, fewer
+    only where the map has fewer block steps of rows), each block's threads
+    on whole rows, every block with rows, 32-bit offsets."""
+    for kernel, (threads, per_sm) in kgn.PAIR_GRID.items():
+        p = kgn.plan(kernel, 1, h * w, c, elem_size, 0)
+        assert p.route == "wide" and p.vec == 16 // elem_size and p.idx32 and p.threads == threads
+        assert p.blocks == p.chunks == min(per_sm * kgn.NUM_SMS, h * w // p.phases) >= kgn.NUM_SMS
+        assert p.tile_w == c // p.vec and p.tile_w * p.phases == threads
+        assert p.chunks * p.phases <= h * w
+
+
+@pytest.mark.parametrize("kernel", sorted(kgn.PAIR_GRID))
+@pytest.mark.parametrize("elem_size", [4, 2])
+def test_pair_plan_takes_the_scalar_route_exactly_where_16_bytes_do_not_divide(kernel, elem_size):
+    """The scalar route where a row's bytes or a pointer are not a multiple
+    of 16, the wide route everywhere else; rows wider than a block split
+    into column tiles; a block for every image at large batches and no block
+    without rows on small maps; 64-bit offsets past 2^31."""
+    threads = kgn.PAIR_GRID[kernel][0]
+    for c in (4, 6, 8, 12, 30, 64, 96, 100, 128, 320, 4096):
+        for ptr in (0, 2, 4, 8, 16, 48):
+            p = kgn.plan(kernel, 2, 64, c, elem_size, ptr)
+            wide = (c * elem_size) % 16 == 0 and ptr % 16 == 0
+            assert p.route == ("wide" if wide else "scalar"), (c, ptr)
+            assert p.tile_w == min(c // p.vec, threads) and p.phases == threads // p.tile_w
+            assert 1 <= p.chunks and (p.chunks - 1) * p.phases < 64
+    assert kgn.plan(kernel, 10**4, 64, 128, elem_size).chunks == 1
+    assert not kgn.plan(kernel, 1, 2**22, 1024, elem_size).idx32
+    with pytest.raises(ValueError):
+        kgn.plan(kernel, 1, 64, kgn.PAIR_MAX_C + 8, elem_size)
+
+
+def _stats_mirror(x, gamma, beta, groups, eps, scale, shift):
+    """gn_stats's partition in torch ops: the per-channel sums of each block
+    of ``plan`` (rows k·phases + p + j·chunks·phases: each row phase apart,
+    then the phases in order), the block's group partials, their sum over
+    blocks in the last block's fixed order (a chunk phase per thread, then
+    the phases in order), E[x²] − E[x]² in float32 and the A, B fold."""
+    n, h, w, c = x.shape
+    p = kgn.plan("gn_stats", n, h * w, c, x.element_size(), 0)
+    gs = c // groups
+    xf = x.float().reshape(n, h * w, c)
+    step = p.chunks * p.phases
+    parts = []
+    for k in range(p.chunks):
+        s1 = sum(xf[:, k * p.phases + ph::step].sum(1) for ph in range(p.phases))  # [n, c]
+        s2 = sum((xf[:, k * p.phases + ph::step] ** 2).sum(1) for ph in range(p.phases))
+        parts.append(torch.stack([s1.reshape(n, groups, gs).sum(-1), s2.reshape(n, groups, gs).sum(-1)], -1))
+    part = torch.stack(parts, 1)  # [n, chunks, G, 2], the workspace
+    fold_p = max(kgn.STATS_THREADS // (2 * groups), 1)
+    tot = sum(part[:, q::fold_p].sum(1) for q in range(fold_p))  # [n, G, 2]
+    cnt = float(h * w * gs)
+    mean, ex2 = tot[..., 0] / cnt, tot[..., 1] / cnt
+    inv = torch.rsqrt(ex2 - mean * mean + eps)
+    a = (inv[:, :, None] * gamma.float().reshape(groups, gs)).reshape(n, c)
+    b = beta.float() - mean.repeat_interleave(gs, 1) * a
+    if scale is not None:
+        a, b = a * (1 + scale.float()), b * (1 + scale.float()) + shift.float()
+    return a, b
+
+
+@pytest.mark.parametrize("ss", [False, True])
+@pytest.mark.parametrize("c,groups", [(128, 32), (256, 32)])
+def test_pair_statistics_mirror_matches_plain(c, groups, ss):
+    """The VAE's 4- and 8-channel groups over 2 images of 2500 rows (66
+    blocks an image, each of several row steps): the partitioned statistics
+    equal gn_stats_plain within 1e-6 relative."""
+    x, gamma, beta, sc, sh = _inputs(c + ss, 2, 50, 50, c, ss)
+    args = (_t(x), _t(gamma), _t(beta), groups, 1e-6, _t(sc), _t(sh))
+    p = kgn.plan("gn_stats", 2, 2500, c, 4, 0)
+    assert p.chunks == kgn.NUM_SMS // 2 and 2500 // (p.chunks * p.phases) >= 2
+    for got, want in zip(_stats_mirror(*args), kgn.gn_stats_plain(*args)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    for got, want in zip(kgn.gn_stats(*args), kgn.gn_stats_plain(*args)):  # a CPU tensor takes the plain version
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ss", [False, True])
+def test_pair_statistics_match_jax_stats_kernel(monkeypatch, ss):
+    """The JAX ``_stats_kernel`` route (Pallas interpret mode, [HW, N, C]
+    view, ``DU_TPU_GN_XLA_STATS=0``) at 4 channels per group: its per-(n, c)
+    A, B against gn_stats's plain version and the partition mirror, and the
+    op's output against gn_apply's plain version, float32."""
+    import jax.numpy as jnp
+
+    monkeypatch.setenv("DU_TPU_GN_XLA_STATS", "0")
+    b, h, w, c, groups = 8, 32, 32, 128, 32
+    x, gamma, beta, sc, sh = _inputs(11 + ss, b, h, w, c, ss)
+    coef = []
+    stats = jgn._gn_stats_hwnc
+    monkeypatch.setattr(jgn, "_gn_stats_hwnc", lambda *a, **kw: coef.append(stats(*a, **kw)) or coef[-1])
+    kernel = jgn._stats_kernel
+    reached = []
+    monkeypatch.setattr(jgn, "_stats_kernel", lambda *a, **kw: reached.append(1) or kernel(*a, **kw))
+    ref = jgn.group_norm_silu(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), num_groups=groups,
+                              scale=None if sc is None else jnp.asarray(sc), shift=None if sh is None else jnp.asarray(sh),
+                              use_pallas=True)
+    assert coef and reached, "the JAX call did not reach _stats_kernel"
+    args = (_t(x), _t(gamma), _t(beta), groups, 1e-5, _t(sc), _t(sh))
+    ja, jb = (torch.from_numpy(np.array(t)) for t in coef[0])
+    for ours in (kgn.gn_stats_plain(*args), _stats_mirror(*args)):
+        torch.testing.assert_close(ours[0], ja, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(ours[1], jb, rtol=1e-5, atol=1e-5)
+    y = kgn.gn_apply_plain(_t(x), *kgn.gn_stats_plain(*args), True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def test_pair_route_counters():
+    kernels.reset_launch_counts()
+    kgn.PAIR_ROUTE_LAUNCHES["wide"] += 3
+    assert kernels.gn_pair_route_counts() == {"wide": 3, "scalar": 0}
+    kernels.reset_launch_counts()
+    assert kernels.gn_pair_route_counts() == {"wide": 0, "scalar": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_kernels_on_card(cuda, dtype):
+    """gn_stats and gn_apply against their plain versions at the VAE's pair
+    maps (batch 1, SiLU) and at shapes off the wide route or with several
+    images, scale-shift and column tiles; two gn_stats calls bit-identical;
+    one launch of each, counted by the plan's route."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dtype)  # noqa: E731
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    cases = [(1, h, w, c, groups, False, True) for h, w, c, groups in VAE_PAIR_SITES]
+    cases += [(3, 9, 7, 96, 6, True, False), (2, 33, 17, 12, 3, True, True), (2, 5, 3, 4096, 4, True, True)]
+    for n, h, w, c, groups, ss, silu in cases:
+        x = r(n, h, w, c)
+        sc, sh = (r(n, c) * 0.1, r(n, c) * 0.1) if ss else (None, None)
+        args = (x, r(c) * 0.1 + 1.0, r(c) * 0.1, groups, 1e-6, sc, sh)
+        kernels.reset_launch_counts()
+        a, b = kgn.gn_stats(*args)
+        y = kgn.gn_apply(x, a, b, silu)
+        route = kgn.plan("gn_stats", n, h * w, c, x.element_size(), x.data_ptr() % 16).route
+        assert kernels.launch_counts()["gn_stats"] == kernels.launch_counts()["gn_apply"] == 1
+        assert kernels.gn_pair_route_counts()[route] == 2
+        a2, b2 = kgn.gn_stats(*args)
+        assert torch.equal(a, a2) and torch.equal(b, b2), (n, h, w, c, groups)
+        ap, bp = kgn.gn_stats_plain(*args)
+        assert float((a - ap).abs().max()) <= 1e-3 and float((b - bp).abs().max()) <= 1e-3, (n, h, w, c, groups)
+        want = kgn.gn_apply_plain(x, a, b, silu).float()
+        bound = tol + (2.0**-7 * want.abs() if dtype == torch.bfloat16 else 0.0)
+        assert bool(((y.float() - want).abs() <= bound).all()), (n, h, w, c, groups, ss, silu)
