@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and hold its kernels to account.
 
-    python3 chip_smoke.py [--details PATH]   # one card, a few minutes
+    python3 chip_smoke.py [--details PATH]   # one card, about four minutes
 
 Phases (a failure in any of them ends the run with a non-zero exit):
 
@@ -12,14 +12,15 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    instance (ptxas); a spill in any but attention fails the run.
 2. Hold every kernel against its plain PyTorch version on the card, at every
    shape the full-width models give it, recorded from the forwards of phases
-   3, 5 and 7: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the CFG
-   batch), the SD VAE decoder at batch 1 (64x64 latent) and the CIFAR-10 UNet
-   at batch 128 (the CLI batch), in bfloat16 and float32. Tolerances:
+   3, 5, 7 and 9: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the
+   CFG batch), the SD VAE decoder at batch 1 (64x64 latent), the CIFAR-10 UNet
+   at batch 128 (the CLI batch) and ADM-64 at batch 8 (phase 9's batch), in
+   bfloat16 and float32. Tolerances:
    interleave bit-exact (the phase interleave, the nearest upsample and their
    pair, at every interleave shape); avg-pool within 1 bf16 ulp (one tensor
    and a pair); each prints its route (wide / narrow: 16-byte words or
    narrower). The two are timed in
-   every form the ADM forward makes (a pair) and in their single forms at the
+   every form the ADM forwards make (a pair) and in their single forms at the
    ADM shapes, and in the SD and CIFAR-10 forwards' single form, by
    ``scripts/bench_resample.py`` ``measure``: besides ms, device_only_ms (the
    calls captured in a CUDA graph) and host_us (the wrapper's host time a
@@ -111,12 +112,35 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    [128, 10, 32, 32, 3] finite with positive mean, Winograd launches 44 per
    forward (60 forwards: 50 trajectory steps and one folded M=5 ensemble
    forward per window step) with the kernel on and none with it off.
+9. ADM-64 and the metrics (BASELINE config 2). (a) The full-width ADM-64
+   forward (``instantiate_model_scheduler("imagenet64", random_init=True)``,
+   295.9M parameters, bf16, batch 8, t=500) against the same weights in
+   float32 on the CPU at batch 1: rel L2 of image 0's 6 channels <= 2e-2;
+   3 paired avg-pool and 3 paired interleave launches, attention on the
+   tensor-core route (D=64), the GroupNorms that took the pair printed.
+   (b) ``compute_ause.main``: imagenet64, uncertainty_zigzag_centered, M=5,
+   num_zigzag=3, a 20-step chain denoised over its second half, batch 8, 16
+   synthetic images, random init: AUSE and AURG finite, summed map mean > 0,
+   images/s. (c) ``compute_nll.main``: imagenet64, learned_range, batch 8, 8
+   images (1000 forwards of the 6-channel model): bpd finite and > 0, s a
+   batch. (d) A 32-image dataset-CLI run of ADM-64 (uncertainty_centered,
+   M=5, 10 steps, window [5, 10)), then ``compute_fid`` stats and drop and
+   ``compute_precision_recall`` real and generated on it, the extractors
+   built from seeded random state dicts of the real architectures
+   (``metrics.features.random_state_dict``): each extractor's card features
+   (Inception at 299², VGG16 at 224², batch 16, float32) against the same
+   weights in float32 on the CPU at batch 2, rel L2 <= 1e-4 (TF32 off), and
+   its features/s; FIDs, precision and recall finite, the last two in [0, 1];
+   precision and recall of two halves of the real features above 0 on the
+   card and within one member of the CPU's.
 
-Every forward of phases 3, 5 and 7 must launch each kernel of its model; each
-main path (phase 4, each run of phase 6, each run of phase 8) sets the launch counters to 0
-just before and reads them just after, and fails if a kernel of its path
-never launched. The last two lines are the kernels JSON (``launches``: the
-sum over the main-path runs; avg_pool_2x2 and interleave_2x also carry
+Every forward of phases 3, 5, 7 and 9a must launch each kernel of its model;
+each main path (phase 4, each run of phase 6, each run of phase 8, and the
+AUSE, NLL and dataset-CLI runs of phase 9) sets the launch counters to 0 just
+before and reads them just after, and fails if a kernel of its path never
+launched. Each phase prints its seconds. The last two lines are the kernels
+JSON (``launches``: the sum over the main-path runs; avg_pool_2x2 and
+interleave_2x also carry
 ``device_only_ms``, ``host_us``, ``forms``, the form their sums take, and
 ``single_form``, the sums of one tensor a launch at every shape) and the
 device JSON. ``--details`` writes every
@@ -136,6 +160,7 @@ import time
 
 SEED = 0
 ADM_BATCH = 8  # images of the ADM main-path run (phase 4)
+ADM64_BATCH = 8  # images a batch of the ADM-64 runs (phase 9)
 CIFAR_BATCH = 128  # images of the CIFAR-10 main-path run (phase 8), the CLI's batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
@@ -143,7 +168,8 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 # whose products are 3xTF32: three TF32 tensor-core products each
 F32_ATTENTION_FLOPS, F32_ATTENTION_ARITH = 495e12 / 3, "3xTF32 (495/3 TFLOP/s)"
 # the batch each model's shapes are checked at; the first is the main path's
-CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,)}
+CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,), "adm64": (ADM64_BATCH,)}
+PAIRED = ("adm", "adm64")  # models whose forward resamples two tensors a launch
 # the single form of the two resampling kernels, one tensor a launch
 RESAMPLE_FORMS = {"avg_pool_2x2": "single", "interleave_2x": "phase"}
 F32_MODELS = ("vae",)  # models whose main path runs in float32 (the SD VAE decoder)
@@ -160,8 +186,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 }
 ADM_PATH = ("group_norm", "attention", "avg_pool_2x2", "interleave_2x")
 # avg-pool and interleave launches of one ADM-128 forward: one pair per down
-# and per up ResBlock
+# and per up ResBlock (ADM-64: 3 of each)
 ADM_RESAMPLE = 4
+ADM64_RESAMPLE = 3
 # the VAE decode's GroupNorms over its large maps take the pair: 6 at
 # 128x128x512, 1 at 256x256x512, 5 at 256x256x256, 1 at 512x512x256, 6 at
 # 512x512x128 (a 64x64 latent)
@@ -324,7 +351,12 @@ def main() -> None:
     from diffusion_uncertainty_torch.models.layers import split_qkv
     from diffusion_uncertainty_torch.sampling import generate_uncertainty_dataset
     from diffusion_uncertainty_torch.scripts import generate_dataset_score_uncertainty as dataset_cli
+    from diffusion_uncertainty_torch.scripts import compute_ause, compute_fid, compute_nll, compute_precision_recall
     from diffusion_uncertainty_torch.scripts import generate_starting_points
+    from diffusion_uncertainty_torch.metrics.features import InceptionV3Features, VGG16Features, random_state_dict
+    from diffusion_uncertainty_torch.metrics.precision_recall import precision_recall
+    from diffusion_uncertainty_torch.utils import paths
+    from diffusion_uncertainty_torch.utils.experiments import load_run_arrays
     from diffusion_uncertainty_torch.scripts.bench_resample import BOUND_INPUTS, measure
     from diffusion_uncertainty_torch.models import adm_unet
     from diffusion_uncertainty_torch.ops import avg_pool_2x2, avg_pool_2x2_pair, interleave_phases_2x, nearest_upsample_2x
@@ -349,7 +381,15 @@ def main() -> None:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
-    details: dict = {"card": card}
+    details: dict = {"card": card, "phase_s": {}}
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        """Print and keep the seconds since the previous lap."""
+        now = time.perf_counter()
+        details["phase_s"][str(phase)] = now - clock[0]
+        print(f"[{phase}] phase time {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
 
     # ---- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
@@ -366,6 +406,7 @@ def main() -> None:
               if not ("0 bytes spill stores" in inst and "0 bytes spill loads" in inst)]
     if spills:
         fail(f"ptxas spills registers in a Winograd, GroupNorm, avg-pool or interleave kernel: {spills}")
+    lap(1)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def check_counts(counts, path, what):
@@ -373,10 +414,10 @@ def main() -> None:
             if counts[name] <= 0:
                 fail(f"{what}: kernel {name} was never launched")
 
-    def check_sd_routes(routes, what):
-        """The SD UNet's bf16 attention is held to the tensor-core route."""
+    def check_tc_routes(routes, what):
+        """bf16 UNet attention (SD's, ADM-64's) is held to the tensor-core route."""
         if routes["cuda_core"] or routes["tensor_core"] <= 0:
-            fail(f"{what}: an SD attention launch left the tensor-core route: {routes}")
+            fail(f"{what}: an attention launch left the tensor-core route: {routes}")
 
     def check_gn_one_launch(gn_routes, what):
         """Every GroupNorm of a UNet forward takes the one-launch route."""
@@ -442,9 +483,28 @@ def main() -> None:
         cifar_fwd_s = time.perf_counter() - t0
     cifar_counts, cifar_gn_routes = kernels.launch_counts(), kernels.gn_route_counts()
 
+    # ADM-64 as the factory builds it for the metric CLIs (seeded random bf16
+    # weights), at the batch of phase 9's runs
+    adm64 = instantiate_model_scheduler("imagenet64", random_init=True, device=dev)
+    n_adm64 = sum(p.numel() for p in adm64.model.parameters())
+    x64 = torch.randn(ADM64_BATCH, 64, 64, 3, generator=gen, device=dev).to(torch.bfloat16)
+    y64 = torch.randint(0, adm64.num_classes, (ADM64_BATCH,), generator=gen, device=dev)
+    with torch.no_grad():
+        adm64.model(x64, 500, y64)  # cuDNN plans, outside the timed call
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad(), Recorder(wrapper_mods) as rec_adm64:
+        t0 = time.perf_counter()
+        out_adm64 = adm64.model(x64, 500, y64)
+        torch.cuda.synchronize()
+        adm64_fwd_s = time.perf_counter() - t0
+    adm64_counts, adm64_routes = kernels.launch_counts(), kernels.route_counts()
+    adm64_gn_routes, adm64_resample = kernels.gn_route_counts(), kernels.resample_counts()
+    lap("recording forwards")
+
     # ---- phase 2: every kernel against its plain version -----------------
     sets = {"adm": shape_sets(rec_adm.sigs), "sd": shape_sets(rec_sd.sigs), "vae": shape_sets(rec_vae.sigs),
-            "cifar": shape_sets(rec_cifar.sigs)}
+            "cifar": shape_sets(rec_cifar.sigs), "adm64": shape_sets(rec_adm64.sigs)}
     for src, ss in sets.items():
         print(f"[2] {src} shapes: " + ", ".join(f"{k} {len(v)}" for k, v in ss.items()), flush=True)
     names = tuple(KERNELS)
@@ -599,8 +659,8 @@ def main() -> None:
             if not bool((diff <= bf16_ulp(ref)).all()):
                 fail(f"avg_pool_2x2 ({route}) disagrees by more than 1 bf16 ulp at {(src, batch, h, w, c)}")
             e = max(e, float(diff.max()))
-        main = "pair" if src == "adm" else "single"
-        for form in ("single", "pair") if src == "adm" else ("single",):
+        main = "pair" if src in PAIRED else "single"
+        for form in ("single", "pair") if src in PAIRED else ("single",):
             times, nbytes, extra = resample_times("pool", form, (batch, h, w, c))
             note("avg_pool_2x2", e, src, batch, torch.bfloat16, [batch, h, w, c, form], "1 ulp", times, nbytes, 0.0,
                  summed=form == main, checked=route, **extra)
@@ -614,8 +674,8 @@ def main() -> None:
         if not (torch.equal(phase, want[0]) and torch.equal(near, want[1]) and torch.equal(pair[0], want[0])
                 and torch.equal(pair[1], want[1])):
             fail(f"interleave_2x ({route}) is not bit-exact at {(src, batch, h, w, c)}")
-        main = "pair" if src == "adm" else "phase"
-        for form in ("phase", "nearest", "pair") if src == "adm" else ("phase",):
+        main = "pair" if src in PAIRED else "phase"
+        for form in ("phase", "nearest", "pair") if src in PAIRED else ("phase",):
             times, nbytes, extra = resample_times("interleave", form, (batch, h, w, c))
             note("interleave_2x", 0.0, src, batch, torch.bfloat16, [batch, h, w, c, form], "exact", times, nbytes, 0.0,
                  summed=form == main, checked=route, **extra)
@@ -735,6 +795,7 @@ def main() -> None:
           f"{adm_wino_sum['ms']:.4f} ms  cuDNN {adm_wino_sum['library_ms']:.4f}  bound {adm_wino_sum['bound_ms']:.4f}",
           flush=True)
     details["winograd_adm_information"] = adm_wino
+    lap(2)
 
     # ---- phase 3: full-width ADM forward against float32 on the CPU ------
     check_counts(adm_fwd_counts, ADM_PATH, "ADM forward")
@@ -770,6 +831,7 @@ def main() -> None:
     if not adm_rel <= 2e-2:
         fail(f"ADM forward: relative L2 error {adm_rel} > 2e-2")
     details.update(n_params=n_params, forward_rel_l2=adm_rel, forward_launches=adm_fwd_counts)
+    lap(3)
 
     # ---- phase 4: the ADM main path ---------------------------------------
     B = ADM_BATCH
@@ -815,12 +877,13 @@ def main() -> None:
           f"{json.dumps(resample)}", flush=True)
     details.update(main_path_s=wall, images_per_s=ips, main_path_launches=adm_launches, uncertainty_mean=u_mean)
     del model, res
+    lap(4)
 
     # ---- phase 5: full-width SD 1.5 UNet and VAE, forward and backward ---
     check_counts(sd_fwd_counts, [k for k in SD_PATH if k not in ("gn_stats", "gn_apply")], "SD UNet forward")
     if sd_fwd_counts["interleave_2x"] != 3:
         fail(f"SD UNet forward: {sd_fwd_counts['interleave_2x']} interleave launches, want 3 (its up-samplers)")
-    check_sd_routes(sd_fwd_routes, "SD UNet forward")
+    check_tc_routes(sd_fwd_routes, "SD UNet forward")
     check_gn_one_launch(sd_gn_routes, "SD UNet forward")
     # the VAE's GroupNorms: the pair exactly where the route rule sends a group
     # beyond 8 blocks, which every 256x256 and 512x512 map is
@@ -892,7 +955,7 @@ def main() -> None:
     if kernels.launch_counts() != bwd_counts:
         fail("backward check: the plain-version run launched a kernel")
     check_counts(bwd_counts, [k for k in SD_PATH if k not in ("gn_stats", "gn_apply")], "SD backward")
-    check_sd_routes(bwd_routes, "SD backward")
+    check_tc_routes(bwd_routes, "SD backward")
     check_gn_one_launch(bwd_gn_routes, "SD backward")
     if not bool(torch.isfinite(grad).all()):
         fail("SD backward: non-finite input gradient")
@@ -904,6 +967,7 @@ def main() -> None:
     details.update(sd_params=n_sd, sd_forward_rel_l2=sd_rel, sd_plain_rel_l2=sd_plain_rel, vae_rel_l2=vae_rel,
                    sd_grad_rel_l2=grad_rel,
                    sd_forward_launches=sd_fwd_counts, vae_launches=vae_counts)
+    lap(5)
 
     # ---- phase 6: the SD 1.5 main path at the CLI defaults ---------------
     cli = T2IConfig(random_init=True)
@@ -927,7 +991,7 @@ def main() -> None:
         s_img = time.perf_counter() - t0
         counts, routes, gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
         check_counts(counts, SD_PATH, f"SD main path ({tag})")
-        check_sd_routes(routes, f"SD main path ({tag})")
+        check_tc_routes(routes, f"SD main path ({tag})")
         if gn_routes["pair"] != vae_gn_routes["pair"] or gn_routes["one_launch"] <= 0:
             fail(f"SD main path ({tag}): GroupNorm routes {gn_routes}: the pair only for the one VAE decode's "
                  f"{vae_gn_routes['pair']} large maps")
@@ -947,6 +1011,7 @@ def main() -> None:
         sd_runs[tag] = {"s_per_image": s_img, "launches": counts, "routes": routes, "gn_routes": gn_routes,
                         "uncertainty_mean": um}
     details.update(sd_main_path=sd_runs)
+    lap(6)
 
     # ---- phase 7: full-width CIFAR-10 UNet forward -----------------------
     for name, want in CIFAR_FORWARD.items():
@@ -977,6 +1042,7 @@ def main() -> None:
     details.update(cifar_params=n_cifar, cifar_forward_rel_l2=cifar_rel, cifar_vs_direct_rel_l2=cifar_vs_direct,
                    cifar_direct_rel_l2=direct_rel, cifar_forward_launches=cifar_counts)
     del cifar, cifar_direct, out_cifar, direct
+    lap(7)
 
     # ---- phase 8: the CIFAR-10 main path through the dataset CLI's functions
     n_fwd = 50 + 10  # trajectory steps, plus one folded M=5 ensemble forward per window step
@@ -1033,14 +1099,151 @@ def main() -> None:
         else:
             os.environ[k] = v
     details.update(cifar_main_path=cifar_runs, checks=rows, sums={" ".join(key): t for key, t in sums.items()})
+    lap(8)
+
+    # ---- phase 9: ADM-64 and the metrics -----------------------------------
+    # 9a: the full-width ADM-64 forward of the recording run
+    check_counts(adm64_counts, ADM_PATH, "ADM-64 forward")
+    check_tc_routes(adm64_routes, "ADM-64 forward")
+    for name in ("avg_pool_2x2", "interleave_2x"):
+        if adm64_counts[name] != ADM64_RESAMPLE or adm64_resample[name]["pair"] != ADM64_RESAMPLE:
+            fail(f"ADM-64 forward: {adm64_counts[name]} {name} launches ({adm64_resample[name]}), want "
+                 f"{ADM64_RESAMPLE} pairs")
+    if not bool(torch.isfinite(out_adm64).all()):
+        fail("ADM-64 forward: non-finite output on the card")
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        cpu_adm64 = ADMUNet(adm64.model.cfg)
+    cpu_adm64.load_state_dict({k: v.float().cpu() for k, v in adm64.model.state_dict().items()}, assign=True)
+    with torch.no_grad():
+        ref = cpu_adm64.eval()(x64[:1].float().cpu(), 500, y64[:1].cpu())
+    adm64_cpu_s = time.perf_counter() - t0
+    del cpu_adm64, adm64
+    adm64_rel = rel_l2(out_adm64[:1], ref)
+    print(f"[9a] ADM-64 forward ({n_adm64 / 1e6:.1f}M params, bf16, batch {ADM64_BATCH}): {adm64_fwd_s:.3f} s; image 0 "
+          f"(6 channels) vs float32 CPU (batch 1, {adm64_cpu_s:.1f} s): rel L2 {adm64_rel:.3e} (limit 2e-2)", flush=True)
+    print(f"[9a] kernels {json.dumps(adm64_counts)}; attention routes {json.dumps(adm64_routes)}; GroupNorm routes "
+          f"{json.dumps(adm64_gn_routes)} ({adm64_gn_routes['pair']} GroupNorms took the pair); avg-pool and interleave "
+          f"{json.dumps(adm64_resample)}", flush=True)
+    if not adm64_rel <= 2e-2:
+        fail(f"ADM-64 forward: relative L2 error {adm64_rel} > 2e-2")
+    metric_runs = {}
+
+    def path_run(tag, fn):
+        """One main-path run of phase 9 between zeroed and read counters:
+        every ADM kernel launches, attention on the tensor-core route."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routes, gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
+        check_counts(counts, ADM_PATH, f"ADM-64 {tag}")
+        check_tc_routes(routes, f"ADM-64 {tag}")
+        print(f"[9] {tag}: kernels {json.dumps(counts)}; attention routes {json.dumps(routes)}; GroupNorm routes "
+              f"{json.dumps(gn_routes)}", flush=True)
+        metric_runs[tag] = {"s": wall, "launches": counts, "routes": routes, "gn_routes": gn_routes}
+        return out, wall
+
+    saved_root = os.environ.get("DIFFUSION_UNCERTAINTY_ROOT")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = root
+        # 9b: BASELINE config 2, ADM-64 zigzag + AUSE, through the AUSE CLI
+        res, wall = path_run("AUSE", lambda: compute_ause.main([
+            "--dataset", "imagenet64", "--scheduler-type", "uncertainty_zigzag_centered", "--M", "5", "--num-zigzag", "3",
+            "--num-steps-uc", "20", "--batch-size", str(ADM64_BATCH), "--num-samples", "16", "--random-init", "true"]))
+        if not (math.isfinite(res.ause) and math.isfinite(res.aurg)):
+            fail(f"ADM-64 AUSE: AUSE {res.ause}, AURG {res.aurg}")
+        if not (math.isfinite(res.uncertainty_mean) and res.uncertainty_mean > 0):
+            fail(f"ADM-64 AUSE: summed map mean {res.uncertainty_mean}")
+        print(f"[9b] BASELINE config 2 (ADM-64 zigzag M=5 x3, steps [10, 20) of 20, bf16, batch {ADM64_BATCH}, "
+              f"{res.images} synthetic images): AUSE {res.ause:.6f}, AURG {res.aurg:.6f}, summed map mean "
+              f"{res.uncertainty_mean:.4e}; {res.seconds:.2f} s in the batches, {res.images / res.seconds:.4f} images/s "
+              f"on {card} ({wall:.2f} s with the model's set-up)", flush=True)
+        metric_runs["AUSE"].update(ause=res.ause, aurg=res.aurg, uncertainty_mean=res.uncertainty_mean,
+                                   batch_s=res.seconds, images_per_s=res.images / res.seconds)
+
+        # 9c: ADM-64 NLL, 1000 forwards of the 6-channel model a batch
+        res, wall = path_run("NLL", lambda: compute_nll.main([
+            "--dataset", "imagenet64", "--variance-type", "learned_range", "--batch-size", str(ADM64_BATCH),
+            "--num-samples", str(ADM64_BATCH), "--random-init", "true"]))
+        if not (math.isfinite(res.total_bpd) and res.total_bpd > 0):
+            fail(f"ADM-64 NLL: total bpd {res.total_bpd}")
+        print(f"[9c] ADM-64 NLL (learned_range, 1000 steps, bf16, batch {ADM64_BATCH}): {res.total_bpd:.4f} bpd, "
+              f"{res.seconds_per_batch:.2f} s a batch on {card}", flush=True)
+        metric_runs["NLL"].update(total_bpd=res.total_bpd, seconds_per_batch=res.seconds_per_batch)
+
+        # 9d: FID and precision/recall on a short dataset-CLI run of ADM-64,
+        # with real-architecture extractors of seeded random weights
+        n_img = 4 * ADM64_BATCH
+        generate_starting_points.main(["--datasets", "imagenet64", "--num-samples", str(n_img), "--extra-samples", "0"])
+        run, wall = path_run("dataset CLI", lambda: dataset_cli.main([
+            "--dataset", "imagenet64", "--scheduler-type", "uncertainty_centered", "--random-init", "true",
+            "--num-samples", str(n_img), "--batch-size", "16", "--M", "5", "--generation-steps", "10",
+            "--start-step-uc", "5", "--num-steps-uc", "5"]))
+        weights = {}
+        for arch in ("inception", "vgg16"):
+            weights[arch] = os.path.join(root, f"{arch}.pth")
+            torch.save(random_state_dict(arch, seed=SEED), weights[arch])
+        imgs = torch.from_numpy(load_run_arrays(run, "gen_images")[:16]).to(dev)
+        for arch, make in (("inception", InceptionV3Features), ("vgg16", VGG16Features)):
+            ext, ext_cpu = make(weights[arch]), make(weights[arch], device="cpu")
+            feats = ext(imgs)
+            ext_rel = rel_l2(feats[:2], ext_cpu(imgs[:2].cpu()))
+            ms = device_ms(lambda: ext(imgs), reps=3, inner=3)
+            print(f"[9d] {arch} features (float32, {imgs.shape[1]}x{imgs.shape[2]} images, batch 16): card vs float32 "
+                  f"CPU (batch 2) rel L2 {ext_rel:.3e} (limit 1e-4); {ms:.3f} ms a batch, {16e3 / ms:.1f} features/s "
+                  f"on {card}", flush=True)
+            if not (bool(torch.isfinite(feats).all()) and ext_rel <= 1e-4):
+                fail(f"{arch} features: finite {bool(torch.isfinite(feats).all())}, rel L2 against the CPU {ext_rel}")
+            metric_runs[f"{arch} features"] = {"rel_l2": ext_rel, "batch_ms": ms, "features_per_s": 16e3 / ms}
+            del ext, ext_cpu
+        common = ["--dataset", "imagenet64", "--batch-size", "16"]
+        drop = ["--run-dir", str(run), "--drop-fraction", "0.25"]
+        t0 = time.perf_counter()
+        compute_fid.main(common + ["--mode", "stats", "--num-samples", str(n_img), "--inception-weights", weights["inception"]])
+        fids = compute_fid.main(common + ["--mode", "drop", "--inception-weights", weights["inception"]] + drop)
+        fid_s = time.perf_counter() - t0
+        compute_precision_recall.main(common + ["--mode", "real", "--num-samples", str(n_img), "--vgg-weights", weights["vgg16"]])
+        pr = compute_precision_recall.main(common + ["--mode", "generated", "--k", "3", "--vgg-weights", weights["vgg16"]] + drop)
+        pr_s = time.perf_counter() - t0 - fid_s
+        scores = {k: fids[k] for k in ("fid_drop_most", "fid_drop_random")}
+        scores.update({k: pr[k] for k in ("precision_drop_most", "recall_drop_most", "precision_drop_random",
+                                          "recall_drop_random")})
+        print(f"[9d] FID stats + drop ({n_img} real, {n_img} generated, 25% dropped; {fid_s:.1f} s) and precision/recall "
+              f"real + generated (k=3; {pr_s:.1f} s): {json.dumps(scores)}", flush=True)
+        if not all(math.isfinite(v) for v in scores.values()):
+            fail(f"metrics: a non-finite score {scores}")
+        if not all(0.0 <= pr[k] <= 1.0 for k in scores if not k.startswith("fid")):
+            fail(f"metrics: precision or recall outside [0, 1]: {scores}")
+        # the random model's images lie off the real manifold (0 is a right
+        # answer there); two halves of the real features overlap, on the card
+        # as on the CPU
+        real = np.load(paths.results() / "pr-features" / "imagenet64_real.npy")
+        halves = real[: n_img // 2], real[n_img // 2 :]
+        pr_card, pr_cpu = precision_recall(*halves), precision_recall(*halves, device="cpu")
+        print(f"[9d] precision/recall of two halves of the real features (k=3): card {tuple(pr_card)}, CPU "
+              f"{tuple(pr_cpu)}", flush=True)
+        if not (min(pr_card) > 0 and max(abs(a - b) for a, b in zip(pr_card, pr_cpu)) <= 1.0 / len(halves[0]) + 1e-6):
+            fail(f"precision/recall of the real halves: card {pr_card}, CPU {pr_cpu}")
+        metric_runs["scores"] = {**scores, "fid_s": fid_s, "pr_s": pr_s, "real_halves_card": tuple(pr_card),
+                                 "real_halves_cpu": tuple(pr_cpu)}
+    if saved_root is None:
+        os.environ.pop("DIFFUSION_UNCERTAINTY_ROOT", None)
+    else:
+        os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = saved_root
+    details.update(adm64_params=n_adm64, adm64_forward_rel_l2=adm64_rel, adm64_forward_launches=adm64_counts,
+                   adm64_gn_routes=adm64_gn_routes, metric_runs=metric_runs)
+    lap(9)
 
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
             json.dump(details, f, indent=1, default=str)
 
-    launches = {k: adm_launches[k] + sum(r["launches"][k] for r in (*sd_runs.values(), *cifar_runs.values()))
-                for k in names}
+    path_runs = (*sd_runs.values(), *cifar_runs.values(), *(r for r in metric_runs.values() if "launches" in r))
+    launches = {k: adm_launches[k] + sum(r["launches"][k] for r in path_runs) for k in names}
     entries = []
     for k, (src, replaces) in KERNELS.items():
         mine = [v for (w, _, _), v in sums.items() if w == k]
@@ -1060,7 +1263,7 @@ def main() -> None:
                       and r["batch"] == CHECK_BATCHES[r["model"]][0]]
             entry.update({key: sum(v[key] for (w, _, _), v in sums.items() if w == k)
                           for key in ("device_only_ms", "host_us")},
-                         forms="ADM: pair (two tensors a launch); SD, CIFAR-10: single",
+                         forms="ADM-128, ADM-64: pair (two tensors a launch); SD, CIFAR-10: single",
                          single_form={key: sum(r[key] for r in single)
                                       for key in ("ms", "device_only_ms", "host_us", "plain_ms", "library_ms", "bound_ms")})
         entries.append(entry)

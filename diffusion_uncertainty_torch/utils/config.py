@@ -3,8 +3,9 @@
 JAX counterpart: ``diffusion_uncertainty_tpu/utils/config.py``
 (``parse_config``, ``save_config`` and what they need); a copy of its rules,
 so that flags, YAML files and ``args.yaml`` read the same in both packages.
-``save_config`` writes one ``key: value`` line per field with JSON scalars,
-which is valid YAML and needs no YAML package.
+``save_config`` writes one ``key: value`` line per field with JSON values,
+which is valid YAML and needs no YAML package; ``read_config`` reads such a
+file back, and needs PyYAML only for another YAML file.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any, Optional, Sequence, Type, TypeVar
 
 T = TypeVar("T")
 
-__all__ = ["parse_config", "from_dict", "save_config"]
+__all__ = ["parse_config", "from_dict", "save_config", "read_config"]
 
 
 def _unwrap_optional(tp: Any) -> Any:
@@ -88,3 +89,22 @@ def save_config(cfg: Any, path, **extra: Any) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in sorted(values.items())))
+
+
+def read_config(path) -> dict[str, Any]:
+    """A YAML mapping file as a dict: ``save_config``'s JSON-valued lines
+    without a YAML package, any other YAML (e.g. one the JAX package wrote
+    with PyYAML) through ``yaml.safe_load``."""
+    text = Path(path).read_text()
+    out: dict[str, Any] = {}
+    for line in text.splitlines():
+        key, sep, value = line.partition(": ")
+        try:
+            if not sep:
+                raise ValueError(line)
+            out[key] = json.loads(value)
+        except ValueError:
+            import yaml  # not save_config's format
+
+            return yaml.safe_load(text) or {}
+    return out

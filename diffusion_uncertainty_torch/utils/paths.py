@@ -18,6 +18,9 @@ __all__ = [
     "models_dir",
     "data_dir",
     "score_uncertainty",
+    "thresholds",
+    "ause",
+    "fid_stats",
     "starting_points",
     "sd_uncertainty_guidance",
 ]
@@ -48,6 +51,21 @@ def data_dir() -> Path:
 def score_uncertainty() -> Path:
     """Uncertainty-map generation runs (``results/score-uncertainty/<run>/``)."""
     return results() / "score-uncertainty"
+
+
+def thresholds() -> Path:
+    """Per-timestep pixel-wise threshold tables (``compute_threshold_pixel_wise``)."""
+    return results() / "thresholds"
+
+
+def ause() -> Path:
+    """AUSE / AURG results, one folder per dataset (``compute_ause``)."""
+    return results() / "ause"
+
+
+def fid_stats() -> Path:
+    """Cached real-dataset feature statistics, one folder per dataset (``compute_fid``)."""
+    return results() / "fid-stats"
 
 
 def starting_points() -> Path:
