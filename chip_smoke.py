@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and hold its kernels to account.
 
-    python3 chip_smoke.py [--details PATH]   # one card, about four minutes
+    python3 chip_smoke.py [--details PATH]   # one card, about five minutes
 
 Phases (a failure in any of them ends the run with a non-zero exit):
 
@@ -12,10 +12,12 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    instance (ptxas); a spill in any but attention fails the run.
 2. Hold every kernel against its plain PyTorch version on the card, at every
    shape the full-width models give it, recorded from the forwards of phases
-   3, 5, 7 and 9: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the
+   3, 5, 7, 9 and 10: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the
    CFG batch), the SD VAE decoder at batch 1 (64x64 latent), the CIFAR-10 UNet
-   at batch 128 (the CLI batch) and ADM-64 at batch 8 (phase 9's batch), in
-   bfloat16 and float32. Tolerances:
+   at batch 128 (the CLI batch), ADM-64 at batch 8 (phase 9's batch), U-ViT-huge
+   at batch 8 (the trajectory) and 40 (the folded M=5 ensemble) and the bf16
+   VAE decodes of the U-ViT datasets (a 32x32 latent at batch 8, a 64x64 latent
+   at batch 1), in bfloat16 and float32. Tolerances:
    interleave bit-exact (the phase interleave, the nearest upsample and their
    pair, at every interleave shape); avg-pool within 1 bf16 ulp (one tensor
    and a pair); each prints its route (wide / narrow: 16-byte words or
@@ -33,10 +35,10 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    second term is one output rounding step where |y| > 2) and <= 1e-4 in f32,
    gn_stats's A, B within 1e-3 of its plain version's and bit-identical over
    two calls, each check printing its route (one launch or the pair, and the
-   pair's word width); attention,
-   scaled to the output (whose size falls as 1/sqrt(S_kv) for random inputs),
-   max |kernel - plain| <= 2^-6·max|plain| (2 to 4 bf16 ulps of the largest
-   output) and relative L2 <= 5e-3 in bf16, max |kernel - plain| <=
+   pair's word width); attention (U-ViT's D=72 on q, k, v views of one qkv
+   projection, as the model makes them), scaled to the output (whose size
+   falls as 1/sqrt(S_kv) for random inputs), max |kernel - plain| <=
+   2^-6·max|plain| (2 to 4 bf16 ulps of the largest output) and relative L2 <= 5e-3 in bf16, max |kernel - plain| <=
    1e-4·max|plain| in f32; Winograd conv (with and without the residual), in
    bf16 max |kernel - plain| <= 2 bf16 ulps of max|plain| and relative L2 <=
    5e-3, in f32 relative L2 <= 1e-5 (the same bf16 rounding points; only
@@ -133,12 +135,31 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    its features/s; FIDs, precision and recall finite, the last two in [0, 1];
    precision and recall of two halves of the real features above 0 on the
    card and within one member of the CPU's.
+10. U-ViT (BASELINE config 4), the factory's ``imagenet256`` and
+   ``imagenet512`` bundles (seeded random bf16 weights, N(0, 0.02) with norm
+   scales 1). (a) The full-width U-ViT-huge/2 forward (batch 8, t=500,
+   latents rounded to bf16) against the same weights in float32 on the CPU
+   at batch 1: rel L2 <= 2e-2 and at most 1e-3 above the same bf16 forward
+   through the plain versions on the card; exactly 29 attention launches
+   (28 blocks and the mid block), every one on the tensor-core route (D=72).
+   (b) The dataset CLI's main path through its functions:
+   ``uncertainty_zigzag_centered`` M=5, num_zigzag=3, 50 DDIM steps, window
+   [40, 50), bf16, batch 8, on the port's ``imagenet256`` starting points,
+   the final latents decoded by the bf16 VAE: images [8, 256, 256, 3] uint8,
+   maps [8, 10, 32, 32, 4] finite with positive mean, images/s; every
+   kernel of the path launched (one-launch GroupNorm, the pair for the
+   decode's 256x256x256 map, attention), 29 tensor-core attention launches
+   a forward, none on the CUDA-core route, the decode's on the wide route.
+   (c) The full-width U-ViT-huge/4 forward (batch 2) against float32 on the
+   CPU at batch 1 with the limits of (a); one bf16 decode of a 64x64 latent
+   at batch 1: [1, 512, 512, 3] finite, its attention on the wide route, the
+   GroupNorms over its 512x512 maps on the pair.
 
-Every forward of phases 3, 5, 7 and 9a must launch each kernel of its model;
-each main path (phase 4, each run of phase 6, each run of phase 8, and the
-AUSE, NLL and dataset-CLI runs of phase 9) sets the launch counters to 0 just
-before and reads them just after, and fails if a kernel of its path never
-launched. Each phase prints its seconds. The last two lines are the kernels
+Every forward of phases 3, 5, 7, 9a and 10 must launch each kernel of its
+model; each main path (phase 4, each run of phase 6, each run of phase 8, the
+AUSE, NLL and dataset-CLI runs of phase 9, and phase 10b) sets the launch
+counters to 0 just before and reads them just after, and fails if a kernel of
+its path never launched. Each phase prints its seconds. The last two lines are the kernels
 JSON (``launches``: the sum over the main-path runs; avg_pool_2x2 and
 interleave_2x also carry
 ``device_only_ms``, ``host_us``, ``forms``, the form their sums take, and
@@ -162,13 +183,17 @@ SEED = 0
 ADM_BATCH = 8  # images of the ADM main-path run (phase 4)
 ADM64_BATCH = 8  # images a batch of the ADM-64 runs (phase 9)
 CIFAR_BATCH = 128  # images of the CIFAR-10 main-path run (phase 8), the CLI's batch
+UVIT_BATCH = 8  # latents of the U-ViT main-path run (phase 10b)
+UVIT_M = 5  # its zigzag members, folded into one forward of UVIT_M * UVIT_BATCH
+UVIT_ATTENTION = 29  # attention launches of one U-ViT-huge forward: 14 + 1 + 14 blocks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 # float32 attention on a main path (the VAE, D=512) takes the wide kernel,
 # whose products are 3xTF32: three TF32 tensor-core products each
 F32_ATTENTION_FLOPS, F32_ATTENTION_ARITH = 495e12 / 3, "3xTF32 (495/3 TFLOP/s)"
 # the batch each model's shapes are checked at; the first is the main path's
-CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,), "adm64": (ADM64_BATCH,)}
+CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,), "adm64": (ADM64_BATCH,),
+                 "uvit": (UVIT_BATCH, UVIT_M * UVIT_BATCH), "uvae": (UVIT_BATCH,), "uvae512": (1,)}
 PAIRED = ("adm", "adm64")  # models whose forward resamples two tensors a launch
 # the single form of the two resampling kernels, one tensor a launch
 RESAMPLE_FORMS = {"avg_pool_2x2": "single", "interleave_2x": "phase"}
@@ -196,6 +221,9 @@ VAE_PAIRS = 19
 # the SD path: the UNet's kernels and the VAE decode's
 SD_PATH = ("group_norm", "gn_stats", "gn_apply", "attention", "attention_long", "interleave_2x")
 CIFAR_PATH = ("group_norm", "attention", "interleave_2x", "winograd")
+# the U-ViT path: the transformer's attention and the bf16 VAE decode's
+# kernels (at 256x256 output the 256-channel map takes the pair)
+UVIT_PATH = ("group_norm", "gn_stats", "gn_apply", "attention")
 # launches of one CIFAR-10 UNet forward: 22 ResnetBlock2Ds x 2 convs; 2 GNs per
 # block, 6 attention norms and the output norm, each one launch; 6
 # attentions; 3 upsamplers
@@ -346,7 +374,7 @@ def main() -> None:
     from diffusion_uncertainty_torch.kernels import interleave as kilv
     from diffusion_uncertainty_torch.kernels import winograd as kwino
     from diffusion_uncertainty_torch.factory import instantiate_model_scheduler
-    from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, AutoencoderKL, SDUNet, UNet2D
+    from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, AutoencoderKL, SDUNet, UNet2D, UViT
     from diffusion_uncertainty_torch.models.adm_unet import ResBlock
     from diffusion_uncertainty_torch.models.layers import split_qkv
     from diffusion_uncertainty_torch.sampling import generate_uncertainty_dataset
@@ -500,11 +528,60 @@ def main() -> None:
         adm64_fwd_s = time.perf_counter() - t0
     adm64_counts, adm64_routes = kernels.launch_counts(), kernels.route_counts()
     adm64_gn_routes, adm64_resample = kernels.gn_route_counts(), kernels.resample_counts()
+
+    # U-ViT-huge/2 and /4 with their bf16 VAE as the factory builds them for
+    # the dataset CLI (seeded random weights): the /2 forward at the main
+    # path's batch and its decode of those latents, the /4 forward at batch 2
+    # and one decode of a 64x64 latent (phase 10); latents rounded to bf16 so
+    # the CPU reference sees the card's inputs
+    uvit = instantiate_model_scheduler("imagenet256", random_init=True, device=dev)
+    n_uvit = sum(p.numel() for p in uvit.model.parameters())
+    zu = torch.randn(UVIT_BATCH, *uvit.sample_shape, generator=gen, device=dev).to(torch.bfloat16).float()
+    yu = torch.randint(0, 1000, (UVIT_BATCH,), generator=gen, device=dev)
+    with torch.no_grad():
+        uvit.model(zu, 500, yu)  # cuBLAS plans, outside the timed call
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad(), Recorder(wrapper_mods) as rec_uvit:
+        t0 = time.perf_counter()
+        out_uvit = uvit.model(zu, 500, yu)
+        torch.cuda.synchronize()
+        uvit_fwd_s = time.perf_counter() - t0
+    uvit_counts, uvit_routes = kernels.launch_counts(), kernels.route_counts()
+    kernels.reset_launch_counts()
+    with torch.no_grad(), Recorder(wrapper_mods) as rec_uvae:
+        t0 = time.perf_counter()
+        img_u = uvit.decode_fn(zu)
+        torch.cuda.synchronize()
+        uvae_s = time.perf_counter() - t0
+    uvae_counts, uvae_routes, uvae_gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
+    uvit512 = instantiate_model_scheduler("imagenet512", random_init=True, device=dev)
+    z512 = torch.randn(2, *uvit512.sample_shape, generator=gen, device=dev).to(torch.bfloat16).float()
+    y512 = torch.randint(0, 1000, (2,), generator=gen, device=dev)
+    with torch.no_grad():
+        uvit512.model(z512, 500, y512)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out_uvit512 = uvit512.model(z512, 500, y512)
+        torch.cuda.synchronize()
+        uvit512_fwd_s = time.perf_counter() - t0
+    uvit512_counts, uvit512_routes = kernels.launch_counts(), kernels.route_counts()
+    kernels.reset_launch_counts()
+    with torch.no_grad(), Recorder(wrapper_mods) as rec_uvae512:
+        t0 = time.perf_counter()
+        img512 = uvit512.decode_fn(z512[:1])
+        torch.cuda.synchronize()
+        uvae512_s = time.perf_counter() - t0
+    uvae512_counts, uvae512_routes = kernels.launch_counts(), kernels.route_counts()
+    uvae512_gn_routes = kernels.gn_route_counts()
     lap("recording forwards")
 
     # ---- phase 2: every kernel against its plain version -----------------
     sets = {"adm": shape_sets(rec_adm.sigs), "sd": shape_sets(rec_sd.sigs), "vae": shape_sets(rec_vae.sigs),
-            "cifar": shape_sets(rec_cifar.sigs), "adm64": shape_sets(rec_adm64.sigs)}
+            "cifar": shape_sets(rec_cifar.sigs), "adm64": shape_sets(rec_adm64.sigs), "uvit": shape_sets(rec_uvit.sigs),
+            "uvae": shape_sets(rec_uvae.sigs), "uvae512": shape_sets(rec_uvae512.sigs)}
     for src, ss in sets.items():
         print(f"[2] {src} shapes: " + ", ".join(f"{k} {len(v)}" for k, v in ss.items()), flush=True)
     names = tuple(KERNELS)
@@ -1237,12 +1314,129 @@ def main() -> None:
                    adm64_gn_routes=adm64_gn_routes, metric_runs=metric_runs)
     lap(9)
 
+    # ---- phase 10: U-ViT (BASELINE config 4) ------------------------------
+    def check_uvit_forward(tag, bundle, z, y, out, counts, routes, fwd_s):
+        """A full-width U-ViT forward of the recording run: 29 attention
+        launches, all tensor-core; image 0 against float32 on the CPU and the
+        plain versions on the card."""
+        if counts["attention"] != UVIT_ATTENTION or routes["tensor_core"] != UVIT_ATTENTION or routes["cuda_core"]:
+            fail(f"{tag} forward: attention launches {counts['attention']} by route {routes}, want "
+                 f"{UVIT_ATTENTION} on the tensor-core route")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"{tag} forward: non-finite output on the card")
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            cpu_model = UViT(bundle.model.cfg)
+        cpu_model.load_state_dict({k: v.float().cpu() for k, v in bundle.model.state_dict().items()}, assign=True)
+        with torch.no_grad():
+            ref = cpu_model.eval()(z[:1].cpu(), 500, y[:1].cpu())
+        cpu_s = time.perf_counter() - t0
+        del cpu_model
+        with torch.no_grad(), PlainKernels(wrapper_mods, plains):
+            plain_rel = rel_l2(bundle.model(z[:1], 500, y[:1]), ref)
+        rel = rel_l2(out[:1], ref)
+        n = sum(p.numel() for p in bundle.model.parameters())
+        print(f"[10] {tag} forward ({n / 1e6:.1f}M params, bf16, batch {z.shape[0]}): {fwd_s:.3f} s; image 0 vs float32 "
+              f"CPU (batch 1, {cpu_s:.1f} s): rel L2 {rel:.3e} (the plain versions on the card: {plain_rel:.3e}; limits "
+              f"2e-2 and plain + 1e-3); attention routes {json.dumps(routes)}", flush=True)
+        if not (rel <= 2e-2 and rel <= plain_rel + 1e-3):
+            fail(f"{tag} forward: relative L2 error {rel} (plain versions {plain_rel}; limits 2e-2 and plain + 1e-3)")
+        return {"params": n, "first_call_s": fwd_s, "rel_l2": rel, "plain_rel_l2": plain_rel, "launches": counts,
+                "routes": routes}
+
+    # 10a: U-ViT-huge/2 of the recording run
+    uvit_runs = {"uvit256 forward": check_uvit_forward("U-ViT-256", uvit, zu, yu, out_uvit, uvit_counts, uvit_routes,
+                                                       uvit_fwd_s)}
+    # 10b: the dataset CLI's main path through its functions, decoded by the bf16 VAE
+    saved_root = os.environ.get("DIFFUSION_UNCERTAINTY_ROOT")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = root
+        generate_starting_points.main(["--datasets", "imagenet256", "--num-samples", str(UVIT_BATCH), "--extra-samples", "0"])
+        x_t, y_t = dataset_cli.load_starting_points("imagenet256", 0, UVIT_BATCH)
+    if saved_root is None:
+        os.environ.pop("DIFFUSION_UNCERTAINTY_ROOT", None)
+    else:
+        os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = saved_root
+    apply_fn, _ = dataset_cli.select_apply_fn(uvit, "uncertainty_zigzag_centered")
+    forwards = [0]
+
+    def counted(x, t, y, noise):
+        forwards[0] += 1
+        return apply_fn(x, t, y, noise)
+
+    with torch.no_grad():  # cuBLAS plans at the folded ensemble's batch
+        apply_fn(zu.repeat(UVIT_M, 1, 1, 1), 999, yu, None)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = generate_uncertainty_dataset(
+        counted, uvit.schedule, SamplerConfig(num_inference_steps=50, after_step=40, num_steps_uc=10), x_t, y_t,
+        UVIT_BATCH, seed=SEED,
+        estimator=make_estimator(EstimatorConfig(name="uncertainty_zigzag_centered", M=UVIT_M, num_zigzag=3)),
+        decode_fn=uvit.decode_fn,
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes, gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
+    print(f"[10b] kernels {json.dumps(counts)} over {forwards[0]} forwards and 1 decode; attention routes "
+          f"{json.dumps(routes)}; GroupNorm routes {json.dumps(gn_routes)}", flush=True)
+    check_counts(counts, UVIT_PATH, "U-ViT main path")
+    if routes["cuda_core"] or routes["tensor_core"] != UVIT_ATTENTION * forwards[0] or routes["wide"] != 1:
+        fail(f"U-ViT main path: attention routes {routes}: want {UVIT_ATTENTION} tensor-core launches a forward "
+             f"({forwards[0]} forwards), the decode's on the wide route, none on the CUDA-core route")
+    if gn_routes["pair"] != uvae_gn_routes["pair"]:
+        fail(f"U-ViT main path: GroupNorm routes {gn_routes}: the pair only for one decode's {uvae_gn_routes['pair']}")
+    imgs, u = res.gen_images, res.uncertainty
+    if imgs.shape != (UVIT_BATCH, 256, 256, 3) or imgs.dtype != np.uint8:
+        fail(f"U-ViT main path: images {imgs.shape} {imgs.dtype}, want ({UVIT_BATCH}, 256, 256, 3) uint8")
+    if u.shape != (UVIT_BATCH, 10, 32, 32, 4) or not bool(np.isfinite(u).all()):
+        fail(f"U-ViT main path: uncertainty {u.shape}, finite {bool(np.isfinite(u).all())}")
+    um = float(u.mean())
+    if not um > 0:
+        fail(f"U-ViT main path: uncertainty mean {um}")
+    ips = UVIT_BATCH / wall
+    print(f"[10b] U-ViT-256 main path (dataset CLI functions): zigzag M={UVIT_M} x3, 50 DDIM steps, window [40, 50), "
+          f"bf16, batch {UVIT_BATCH}, bf16 VAE decode: {wall:.2f} s, {ips:.4f} images/s on {card} (information, not a "
+          f"claim); images {imgs.shape}, uncertainty mean {um:.4e}", flush=True)
+    uvit_runs["main path"] = {"s": wall, "images_per_s": ips, "forwards": forwards[0], "launches": counts,
+                              "routes": routes, "gn_routes": gn_routes, "uncertainty_mean": um}
+    del res
+    # 10c: U-ViT-huge/4 of the recording run, and its bf16 decode of a 64x64 latent
+    uvit_runs["uvit512 forward"] = check_uvit_forward("U-ViT-512", uvit512, z512, y512, out_uvit512, uvit512_counts,
+                                                      uvit512_routes, uvit512_fwd_s)
+    if tuple(img512.shape) != (1, 512, 512, 3) or not bool(torch.isfinite(img512).all()):
+        fail(f"U-ViT-512 decode: image {tuple(img512.shape)}, finite {bool(torch.isfinite(img512).all())}")
+    if (uvae512_counts["attention_long"] != 1 or uvae512_routes["wide"] != 1 or uvae512_routes["cuda_core"]
+            or uvae512_routes["tensor_core"]):
+        fail(f"U-ViT-512 decode: its D=512 attention must take the wide route once: {uvae512_counts} {uvae512_routes}")
+    gn512 = [sig for name, sig in rec_uvae512.sigs if name == "group_norm"]
+    pair512 = [sig for sig in gn512 if kgn.route(1, sig[0] * sig[1], sig[2], sig[3], 2)[0] == "pair"]
+    if any(sig[0] * sig[1] >= 512 * 512 and sig not in pair512 for sig in gn512) or not pair512:
+        fail(f"U-ViT-512 decode: a GroupNorm over a 512x512 map is routed to one launch: {gn512}")
+    if uvae512_gn_routes != {"one_launch": len(gn512) - len(pair512), "pair": len(pair512)}:
+        fail(f"U-ViT-512 decode: GroupNorm routes {uvae512_gn_routes}, expected {len(pair512)} pair of {len(gn512)}")
+    print(f"[10c] U-ViT-512 bf16 decode (64x64 latent, batch 1): {uvae512_s:.3f} s first call; kernels "
+          f"{json.dumps(uvae512_counts)}; attention routes {json.dumps(uvae512_routes)}; GroupNorm routes "
+          f"{json.dumps(uvae512_gn_routes)} (pair at {sorted(set(pair512))})", flush=True)
+    if tuple(img_u.shape) != (UVIT_BATCH, 256, 256, 3) or not bool(torch.isfinite(img_u).all()):
+        fail(f"U-ViT-256 decode: images {tuple(img_u.shape)}, finite {bool(torch.isfinite(img_u).all())}")
+    print(f"[10] U-ViT-256 bf16 decode (32x32 latents, batch {UVIT_BATCH}): {uvae_s:.3f} s first call; kernels "
+          f"{json.dumps(uvae_counts)}; attention routes {json.dumps(uvae_routes)}; GroupNorm routes "
+          f"{json.dumps(uvae_gn_routes)}", flush=True)
+    uvit_runs["decodes"] = {"uvae_first_call_s": uvae_s, "uvae_launches": uvae_counts, "uvae_gn_routes": uvae_gn_routes,
+                            "uvae512_first_call_s": uvae512_s, "uvae512_launches": uvae512_counts,
+                            "uvae512_gn_routes": uvae512_gn_routes}
+    details.update(uvit_runs=uvit_runs, uvit_params=n_uvit)
+    del uvit, uvit512
+    lap(10)
+
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
             json.dump(details, f, indent=1, default=str)
 
-    path_runs = (*sd_runs.values(), *cifar_runs.values(), *(r for r in metric_runs.values() if "launches" in r))
+    path_runs = (*sd_runs.values(), *cifar_runs.values(), *(r for r in metric_runs.values() if "launches" in r),
+                 uvit_runs["main path"])
     launches = {k: adm_launches[k] + sum(r["launches"][k] for r in path_runs) for k in names}
     entries = []
     for k, (src, replaces) in KERNELS.items():

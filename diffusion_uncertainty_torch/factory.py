@@ -9,15 +9,21 @@ settings per dataset:
   cifar10     diffusers UNet2DModel (google/ddpm-cifar10-32) with the dropout
               override, linear schedule (1e-4, 0.02)
   tiny        the small ADM test configuration, linear schedule
+  imagenet256 U-ViT-huge/2 on 32x32x4 latents + the SD KL-f8 VAE decoder,
+  imagenet512 U-ViT-huge/4 on 64x64x4 latents + the same decoder; both on
+              the scaled-linear schedule (0.00085, 0.012), the VAE in the
+              bundle's type (JAX ``_instantiate_uvit``, :208-266)
 
 A checkpoint is a reference torch state dict (``torch.load``), read as it
 is: the port's modules use the reference's key layout. With
 ``random_init=True`` every parameter is N(0, 0.02²) from a
 ``torch.Generator`` seeded with 0 on the target device (the JAX factory's
 ``0.02 * normal`` random init from key 0): architecture-true weights with no
-checkpoint. ``winograd=True`` builds the model with its Winograd route on
-(the JAX package's ``DU_TPU_WINOGRAD=1``; the CLI reads that variable).
-The U-ViT datasets (imagenet256, imagenet512) are not ported.
+checkpoint. For the U-ViT datasets one generator seeds U-ViT and then the
+VAE, N(0, 0.02²) with LayerNorm and GroupNorm scales at 1 and shifts at 0
+(the JAX factory's constant ``0.02 * ones`` VAE decodes to flat images).
+``winograd=True`` builds the model with its Winograd route on (the JAX
+package's ``DU_TPU_WINOGRAD=1``; the CLI reads that variable).
 """
 
 from __future__ import annotations
@@ -29,11 +35,12 @@ from typing import Any, Callable, Optional
 import torch
 
 from .diffusion.schedule import NoiseSchedule, cosine_schedule, make_schedule
-from .models import ADMUNet, ADMUNetConfig, UNet2D, UNet2DConfig
+from .models import ADMUNet, ADMUNetConfig, AutoencoderKL, AutoencoderKLConfig, UNet2D, UNet2DConfig, UViT, UViTConfig
+from .models.layers import GroupNorm32
 from .utils import paths
 from .utils.device import resolve_device
 
-__all__ = ["ModelBundle", "DATASET_IMAGE_SIZE", "instantiate_model_scheduler", "init_scheduler"]
+__all__ = ["ModelBundle", "DATASET_IMAGE_SIZE", "instantiate_model_scheduler", "init_scheduler", "init_normal_"]
 
 DATASET_IMAGE_SIZE = {
     "imagenet64": 64,
@@ -49,12 +56,9 @@ _CHECKPOINTS = {
     "imagenet64": "64x64_diffusion.pt",
     "imagenet128": "128x128_diffusion.pt",
     "cifar10": "ddpm-cifar10-32.bin",
-}
-
-# datasets of the JAX factory that the port does not run yet
-_NOT_PORTED = {
-    "imagenet256": "ROADMAP.md queue 1 item 13 (U-ViT)",
-    "imagenet512": "ROADMAP.md queue 1 item 13 (U-ViT)",
+    "imagenet256": "imagenet256_uvit_huge.pth",
+    "imagenet512": "imagenet512_uvit_huge.pth",
+    "autoencoder": "autoencoder_kl_ema.pth",
 }
 
 
@@ -71,6 +75,8 @@ class ModelBundle:
     apply_fn: Callable
     apply_fn_dropout: Callable
     sample_shape: tuple  # (H, W, C) the sampler operates on
+    # latent models: final latents [B, h, w, C] -> images [B, H, W, 3] float32
+    decode_fn: Optional[Callable] = None
 
 
 def init_scheduler(dataset: str, device="cuda") -> NoiseSchedule:
@@ -95,8 +101,6 @@ def _model_config(dataset: str, dropout: float, winograd: bool):
         return UNet2D, dataclasses.replace(UNet2DConfig.ddpm_cifar10(dropout=dropout), winograd=winograd)
     if dataset == "tiny":
         return ADMUNet, dataclasses.replace(ADMUNetConfig.tiny(), dropout=dropout or 0.1, winograd=winograd)
-    if dataset in _NOT_PORTED:
-        raise NotImplementedError(f"dataset {dataset!r} is not ported yet: {_NOT_PORTED[dataset]}")
     raise ValueError(f"unsupported dataset: {dataset!r}")
 
 
@@ -114,6 +118,8 @@ def instantiate_model_scheduler(
     autograd on the parameters, 4-D weights channels_last), its schedule and
     its conditioned forwards (JAX ``instantiate_model_scheduler``)."""
     dev = resolve_device(device)
+    if dataset in ("imagenet256", "imagenet512"):
+        return _instantiate_uvit(dataset, dtype, checkpoint, random_init, models_dir, dev)
     model_cls, cfg = _model_config(dataset, dropout, winograd)
     schedule = init_scheduler(dataset, device=dev)
     ckpt = Path(checkpoint) if checkpoint else Path(models_dir or paths.models_dir()) / _CHECKPOINTS.get(dataset, "")
@@ -125,15 +131,8 @@ def instantiate_model_scheduler(
         with torch.no_grad():
             for p in model.parameters():
                 p.normal_(0.0, 0.02, generator=gen)
-    elif ckpt.is_file():
-        sd = torch.load(ckpt, map_location="cpu")
-        if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
-            sd = sd["state_dict"]
-        model.load_state_dict(sd, assign=True)
     else:
-        raise FileNotFoundError(
-            f"checkpoint {ckpt} not found: pass its path, or random_init=True for architecture-true random weights"
-        )
+        _load(model, ckpt)
     model = model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval().requires_grad_(False)
 
     num_classes = getattr(cfg, "num_classes", None)
@@ -154,4 +153,68 @@ def instantiate_model_scheduler(
         apply_fn=apply_fn,
         apply_fn_dropout=apply_fn_dropout,
         sample_shape=(size, size, 3),
+    )
+
+
+def _load(module: torch.nn.Module, ckpt: Path) -> None:
+    """A reference state dict from ``ckpt`` into a meta-device module."""
+    if not ckpt.is_file():
+        raise FileNotFoundError(
+            f"checkpoint {ckpt} not found: pass its path, or random_init=True for architecture-true random weights"
+        )
+    sd = torch.load(ckpt, map_location="cpu")
+    if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
+        sd = sd["state_dict"]
+    module.load_state_dict(sd, assign=True)
+
+
+def init_normal_(module: torch.nn.Module, gen: torch.Generator, std: float = 0.02) -> torch.nn.Module:
+    """Seeded random weights in place: N(0, std²) from ``gen`` in parameter
+    order, LayerNorm and GroupNorm scales 1 and shifts 0."""
+    norms = {n for n, m in module.named_modules() if isinstance(m, (torch.nn.LayerNorm, GroupNorm32))}
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            if owner in norms:
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            else:
+                p.normal_(0.0, std, generator=gen)
+    return module
+
+
+def _instantiate_uvit(dataset, dtype, checkpoint, random_init, models_dir, dev) -> ModelBundle:
+    """Latent U-ViT-huge and the KL-VAE decoder, both in ``dtype`` (JAX
+    ``_instantiate_uvit``; the reference ``UViTAE``). The forwards are the
+    plain U-ViT (4 latent channels, no dropout at inference, so the dropout
+    forward is the same function); ``decode_fn`` maps final latents to
+    images."""
+    size = DATASET_IMAGE_SIZE[dataset]
+    cfg = UViTConfig.imagenet256() if size == 256 else UViTConfig.imagenet512()
+    models_dir = Path(models_dir or paths.models_dir())
+    with torch.device("meta"):
+        model, ae = UViT(cfg), AutoencoderKL(AutoencoderKLConfig.sd_kl_ema())
+    if random_init:
+        model, ae = model.to_empty(device=dev), ae.to_empty(device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        init_normal_(model, gen)
+        init_normal_(ae, gen)
+    else:
+        _load(model, Path(checkpoint) if checkpoint else models_dir / _CHECKPOINTS[dataset])
+        _load(ae, models_dir / _CHECKPOINTS["autoencoder"])
+    model, ae = (m.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval().requires_grad_(False)
+                 for m in (model, ae))
+
+    def apply_fn(x, t, y, noise):
+        return model(x, t, y)
+
+    return ModelBundle(
+        name=dataset,
+        model=model,
+        schedule=init_scheduler(dataset, device=dev),
+        image_size=size,
+        num_classes=cfg.num_classes,
+        apply_fn=apply_fn,
+        apply_fn_dropout=apply_fn,
+        sample_shape=(cfg.img_size, cfg.img_size, cfg.in_chans),
+        decode_fn=ae.decode,
     )

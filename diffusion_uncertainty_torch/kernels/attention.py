@@ -41,8 +41,8 @@ WIDE_MIN_HEAD_DIM = 257  # head dims from here to MAX_HEAD_DIM take the wide rou
 # (``_WHOLE_ROW_MAX_S``, flash_attention.py:119)
 LONG_KEYS = 2048
 # bf16 head dims with a tensor-core instance: SD 1.5 (40, 80, 160), ADM-128
-# and the CIFAR-10 UNet (64, 128, 192, 256)
-TC_HEAD_DIMS = (40, 64, 80, 128, 160, 192, 256)
+# and the CIFAR-10 UNet (64, 128, 192, 256), U-ViT-huge (72)
+TC_HEAD_DIMS = (40, 64, 72, 80, 128, 160, 192, 256)
 WIDE_Q_TILE = 64  # query rows of a wide-route block (csrc kWQ)
 WIDE_KEY_TILE = 16  # keys of a wide-route tile (kWK); a split holds whole tiles
 MAX_SPLITS = 16  # kMaxSplits

@@ -9,7 +9,8 @@
 // mid attention, S=4096, D=512) and `_kernel` of
 // diffusion_uncertainty_tpu/ops/packed_attention.py (:95-124; ADM-128's 16x16
 // sites, S=256, D=192, and 8x8 sites, S=64, D=256; SD 1.5's D=80/160 levels
-// and its 77-key cross-attention).
+// and its 77-key cross-attention; U-ViT-huge's 16 heads of D=72 over its
+// S=258 tokens, q, k and v strided views of one qkv projection).
 //
 // The TPU kernels hold one whole [bq, S_kv] float32 logits row tile in VMEM.
 // That does not carry over: a 64 x 1024 float32 tile is 256 KB, over the
@@ -25,8 +26,8 @@
 // elements moved, far above the card's memory line at every shape the port
 // runs, so the limit is the arithmetic. Three kernels, one route each (the
 // wrapper picks the route and counts it):
-//   * tensor core (bf16, D in {40, 64, 80, 128, 160, 192, 256}, rows on 16
-//     bytes): `attention_tc_kernel`, both products on mma.sync;
+//   * tensor core (bf16, D in {40, 64, 72, 80, 128, 160, 192, 256}, rows on
+//     16 bytes): `attention_tc_kernel`, both products on mma.sync;
 //   * wide (256 < D <= 512, bf16 and float32): `attention_wide_kernel`, logits
 //     once per key tile for all value columns, keys split over blocks, float32
 //     by 3xTF32 on the tensor cores; `attention_combine_kernel` merges splits;
@@ -281,7 +282,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S,
 // Replaces, in bf16, `_kernel_whole_row` (flash_attention.py:87; ADM's
 // 32x32 sites), `_kernel` (flash_attention.py:134; SD's 64x64 self-attention
 // at D=40) and the packed-head `_kernel` (packed_attention.py:95; ADM's
-// 16x16 and 8x8 sites, SD's D=80/160 levels and 77-key cross-attention).
+// 16x16 and 8x8 sites, SD's D=80/160 levels and 77-key cross-attention;
+// U-ViT's D=72 heads).
 //
 // Bound: the products (989 TFLOP/s dense bf16 with wgmma; mma.sync reaches a
 // part of it) and, at D=40, the exponentials: one per logit for 80
@@ -298,8 +300,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S,
 //   * fragments by ldmatrix (ldmatrix.trans for V as stored, [key][d]), rows
 //     padded to an odd number of 16-byte chunks so the eight row addresses of
 //     every 8x8 matrix fall in distinct banks at every pitch;
-//   * D=40: the k-depth of Q K^T zero-padded to 48 in shared memory (the pad
-//     is written once; cp.async never touches it), P V over 5 n-tiles of 8;
+//   * D=40 and D=72: the k-depth of Q K^T zero-padded to 48 and 80 in shared
+//     memory (the pad is written once; cp.async never touches it), P V over 5
+//     and 9 n-tiles of 8; at D=72 (row pitch 88 elements, 11 16-byte chunks)
+//     the rows of a qkv view sit 6912 bytes apart and its heads 144, both
+//     16-byte multiples. Query rows past S (U-ViT's 258 = 2 x 128 + 2) are
+//     staged as zeros and never stored;
 //   * the softmax on the accumulators in registers: one exp2f per logit, P
 //     rounded to bf16 and reused in registers as the A operand of P V; Q's
 //     fragments are held in registers across key tiles where DP <= 128.
@@ -927,7 +933,7 @@ constexpr float kLog2e = 1.4426950408889634f;
   long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb, \
       long long v_ss, long long v_sh
 
-// bf16, D in {40, 64, 80, 128, 160, 192, 256}, every row on 16 bytes
+// bf16, D in {40, 64, 72, 80, 128, 160, 192, 256}, every row on 16 bytes
 extern "C" int du_attention_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int D,
                                int n_keys, DU_STRIDE_ARGS, float scale, void* stream) {
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
@@ -937,6 +943,7 @@ extern "C" int du_attention_tc(const void* q, const void* k, const void* v, void
   switch (D) {
     case 40: return launch_tc_rows<40>(q, k, v, o, B, S, H, n_keys, st, c, s);
     case 64: return launch_tc_rows<64>(q, k, v, o, B, S, H, n_keys, st, c, s);
+    case 72: return launch_tc_rows<72>(q, k, v, o, B, S, H, n_keys, st, c, s);
     case 80: return launch_tc_rows<80>(q, k, v, o, B, S, H, n_keys, st, c, s);
     case 128: return launch_tc_rows<128>(q, k, v, o, B, S, H, n_keys, st, c, s);
     case 160: return launch_tc_rows<160>(q, k, v, o, B, S, H, n_keys, st, c, s);

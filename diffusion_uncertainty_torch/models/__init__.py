@@ -8,6 +8,8 @@ from .convert import (  # noqa: F401
     autoencoder_kl_state_dict_from_flax,
     sd_unet_state_dict_from_flax,
     unet2d_state_dict_from_flax,
+    uvit_state_dict_from_flax,
 )
 from .sd_unet import SDUNet, SDUNetConfig  # noqa: F401
 from .unet2d import UNet2D, UNet2DConfig  # noqa: F401
+from .uvit import UViT, UViTConfig  # noqa: F401

@@ -17,7 +17,9 @@ exactly:
   projections);
 * ``autoencoder_kl_state_dict_from_flax`` inverts ``convert_autoencoder_kl``
   (CompVis KL-f8 layout; the encoder and quant convs when the parameters
-  have them).
+  have them);
+* ``uvit_state_dict_from_flax`` inverts ``convert_uvit`` (the reference
+  ``uvit/uvit.py`` layout; the fused qkv rows need no permutation).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ __all__ = [
     "unet2d_state_dict_from_flax",
     "sd_unet_state_dict_from_flax",
     "autoencoder_kl_state_dict_from_flax",
+    "uvit_state_dict_from_flax",
     "legacy_qkv_permutation",
 ]
 
@@ -306,4 +309,38 @@ def autoencoder_kl_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Te
     for name in ("quant_conv", "post_quant_conv"):
         if name in P:
             out.conv(name, P[name])
+    return out.sd
+
+
+def uvit_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``UViT`` params -> reference U-ViT state dict (``_uvit_block`` and
+    ``convert_uvit`` read backwards)."""
+    P = params.get("params", params)
+    out = _Out()
+    out.conv("patch_embed.proj", P["patch_embed"])
+    out.put("pos_embed", P["pos_embed"])
+    if cfg.num_classes:
+        out.put("label_emb.weight", P["label_emb"]["embedding"])
+    if cfg.mlp_time_embed:
+        out.dense("time_embed.0", P["time_dense_0"])
+        out.dense("time_embed.2", P["time_dense_1"])
+
+    def block(pfx: str, p: dict) -> None:
+        for name in ("norm1", "norm2"):
+            out.norm(f"{pfx}.{name}", p[name]["scale"], p[name]["bias"])
+        out.dense(f"{pfx}.attn.qkv", p["attn"]["qkv"])
+        out.dense(f"{pfx}.attn.proj", p["attn"]["proj"])
+        out.dense(f"{pfx}.mlp.fc1", p["mlp_fc1"])
+        out.dense(f"{pfx}.mlp.fc2", p["mlp_fc2"])
+        if "skip_linear" in p:
+            out.dense(f"{pfx}.skip_linear", p["skip_linear"])
+
+    for i in range(cfg.depth // 2):
+        block(f"in_blocks.{i}", P[f"in_block_{i}"])
+        block(f"out_blocks.{i}", P[f"out_block_{i}"])
+    block("mid_block", P["mid_block"])
+    out.norm("norm", P["norm"]["scale"], P["norm"]["bias"])
+    out.dense("decoder_pred", P["decoder_pred"])
+    if cfg.final_conv:
+        out.conv("final_layer", P["final_layer"])
     return out.sd

@@ -14,9 +14,11 @@ Per-batch noise: batch ``b`` draws from ``TorchNoise(batch_seed(seed, b))``
 (``utils.rng.batch_seed``), so its draws do not depend on which batches ran
 before it, as the JAX ``batch_key(run_key(seed), b)``. ``estimator_apply_fn``
 is the model the estimator calls (the dropout forward of ``mc_dropout``); the
-trajectory forward is ``apply_fn`` and stays deterministic. Not ported: the
-device mesh (ROADMAP.md queue 1 item 18), the DPM-Solver sampler (item 11),
-decoders of latent models and the FID hook.
+trajectory forward is ``apply_fn`` and stays deterministic. A latent
+model's ``decode_fn`` (U-ViT's VAE decoder) maps each batch's final sample
+to images before the uint8 conversion; its uncertainty maps and scores stay
+in latent space. Not ported: the device mesh (ROADMAP.md queue 1 item 18),
+the DPM-Solver sampler (item 11) and the FID hook.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ def generate_uncertainty_dataset(
     sampler: str = "ddim",
     estimator_apply_fn: Optional[ApplyFn] = None,
     noise_factory: Callable = TorchNoise,
+    decode_fn: Optional[Callable] = None,  # latent models: latents -> images before uint8
 ) -> GenerationResult:
     """Sample every starting point of ``X_T`` on the schedule's device.
     ``noise_factory(seed, device)`` makes each batch's noise source (a test
@@ -101,7 +104,8 @@ def generate_uncertainty_dataset(
             model_fn, schedule, torch.from_numpy(xb).to(dev), noise_factory(batch_seed(seed, b), dev), sampler_cfg,
             estimator=estimator, guidance=guidance, estimator_model_fn=est_fn,
         )
-        imgs = to_uint8(res.sample).cpu().numpy()[: hi - lo]
+        sample = res.sample if decode_fn is None else decode_fn(res.sample)
+        imgs = to_uint8(sample).cpu().numpy()[: hi - lo]
         u = res.uncertainty.transpose(0, 1).cpu().numpy()[: hi - lo] if res.uncertainty is not None else None
         eps = None
         if collect_eps and res.pred_epsilon is not None:

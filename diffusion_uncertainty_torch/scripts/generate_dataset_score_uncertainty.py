@@ -16,9 +16,17 @@ schedule (``factory``), and writes the run's shards (``sampling``) into
 
 ``DU_TPU_WINOGRAD=1``, the switch the JAX package honours, is read once here
 and builds the model with its Winograd conv route on. Runs: ``cifar10``,
-``imagenet64``, ``imagenet128`` and ``tiny`` with ``uncertainty_centered``,
-``uncertainty_zigzag_centered`` and ``mc_dropout``. Not ported yet (each
-raises naming its ROADMAP.md queue 1 item): the U-ViT datasets, the other
+``imagenet64``, ``imagenet128``, ``tiny`` and the U-ViT latent datasets
+``imagenet256`` and ``imagenet512`` (sampled in latent space and decoded to
+images by the bundle's VAE) with ``uncertainty_centered``,
+``uncertainty_zigzag_centered`` and ``mc_dropout``:
+
+    python -m diffusion_uncertainty_torch.scripts.generate_starting_points --datasets imagenet256
+    python -m diffusion_uncertainty_torch.scripts.generate_dataset_score_uncertainty --dataset imagenet256 \\
+        --scheduler-type uncertainty_zigzag_centered --random-init true --num-samples 8 --batch-size 8 \\
+        --M 5 --num-zigzag 3 --generation-steps 50 --start-step-uc 40 --num-steps-uc 10
+
+Not ported yet (each raises naming its ROADMAP.md queue 1 item): the other
 scheduler types, classifier guidance and the device mesh.
 """
 
@@ -124,8 +132,6 @@ def _check_ported(cfg: Config) -> None:
         raise SystemExit("classifier guidance is not ported yet: ROADMAP.md queue 1, item 10 (ADMClassifier)")
     if cfg.mesh_data > 1:
         raise SystemExit("the device mesh is not ported yet: ROADMAP.md queue 1, item 18 (parallelism)")
-    if cfg.dataset in ("imagenet256", "imagenet512"):
-        raise SystemExit(f"dataset {cfg.dataset!r} is not ported yet: ROADMAP.md queue 1, item 13 (U-ViT)")
 
 
 def main(argv=None) -> Path:
@@ -185,6 +191,7 @@ def main(argv=None) -> Path:
         run_dir=run_dir,
         shard_offset=cfg.worker_index * 100000,  # disjoint shard ids per worker
         keep_in_memory=False,
+        decode_fn=bundle.decode_fn,
     )
     if bundle.schedule.device.type == "cuda":
         torch.cuda.synchronize()

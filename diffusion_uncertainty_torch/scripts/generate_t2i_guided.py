@@ -37,8 +37,8 @@ import numpy as np
 import torch
 
 from ..diffusion.schedule import NoiseSchedule, make_schedule
+from ..factory import init_normal_
 from ..models import AutoencoderKL, AutoencoderKLConfig, SDUNet, SDUNetConfig
-from ..models.layers import GroupNorm32
 from ..utils import paths
 from ..utils.config import parse_config, save_config
 from ..utils.device import resolve_device
@@ -94,19 +94,10 @@ _NOT_PORTED = {
 }
 
 
-@torch.no_grad()
 def init_random_(module: torch.nn.Module, seed: int, std: float = 0.02) -> torch.nn.Module:
     """Seeded random weights in place: N(0, std) everywhere except the
     GroupNorm / LayerNorm scales (1) and shifts (0)."""
-    gen = torch.Generator(device=next(module.parameters()).device).manual_seed(seed)
-    norms = {n for n, m in module.named_modules() if isinstance(m, (torch.nn.LayerNorm, GroupNorm32))}
-    for name, p in module.named_parameters():
-        owner, _, leaf = name.rpartition(".")
-        if owner in norms:
-            p.fill_(1.0 if leaf == "weight" else 0.0)
-        else:
-            p.normal_(0.0, std, generator=gen)
-    return module
+    return init_normal_(module, torch.Generator(device=next(module.parameters()).device).manual_seed(seed), std)
 
 
 def _build(make: Callable[[], torch.nn.Module], weights: Optional[str], seed: int, device, dtype) -> torch.nn.Module:

@@ -3,6 +3,7 @@
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model sd15 --batch 2 [--json PATH]
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model cifar10 --batch 128 --winograd 1
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model vae --batch 1
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model uvit256 --batch 8
     PYTHONPATH=<another checkout> python <this file> --model vae --batch 1
 
 No JAX counterpart (the JAX package's profiles are TPU traces). Builds the
@@ -13,7 +14,9 @@ model with seeded random bf16 weights (``generate_t2i_guided.init_random_``;
 ResnetBlock2D convs on the Winograd kernel with ``--winograd 1`` and on
 cuDNN with ``--winograd 0``; ``vae``: the SD KL-VAE decoder in float32, as
 the text-to-image CLI runs it, one decode of a 64x64 latent to a 512x512
-image), times ``ITERS`` forwards on the host
+image; ``uvit256`` / ``uvit512``: U-ViT-huge/2 on 32x32x4 latents / U-ViT-huge/4
+on 64x64x4 latents from ``factory.instantiate_model_scheduler(random_init=True)``,
+bf16, t=500), times ``ITERS`` forwards on the host
 clock (ending in a synchronize), then traces ``TRACE`` more with
 ``torch.profiler`` and prints the device time
 per forward by kernel family and the largest kernels, the device's busy
@@ -34,6 +37,7 @@ from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, Autoencod
 from diffusion_uncertainty_torch.pipelines import pseudo_text_embeddings
 from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config, _build, build_sd_stack, init_random_
 
+MODELS = "sd15 | adm128 | cifar10 | vae | uvit256 | uvit512"
 ITERS = 10  # forwards timed on the host clock
 TRACE = 3  # forwards traced by torch.profiler
 # kernel-name substrings -> family, first match wins
@@ -86,12 +90,19 @@ def build(model: str, batch: int, device, winograd: bool = False):
         vae = _build(lambda: AutoencoderKL(AutoencoderKLConfig.sd_kl_ema()), None, 1, device, torch.float32)
         z = torch.randn(batch, 64, 64, vae.cfg.embed_dim, generator=gen, device=device)
         return (lambda: vae.decode(z)), sum(p.numel() for p in vae.parameters())
-    raise SystemExit(f"unknown model {model!r}: sd15 | adm128 | cifar10 | vae")
+    if model in ("uvit256", "uvit512"):
+        from diffusion_uncertainty_torch.factory import instantiate_model_scheduler
+
+        bundle = instantiate_model_scheduler("imagenet" + model[4:], random_init=True, device=device)
+        x = torch.randn(batch, *bundle.sample_shape, generator=gen, device=device)
+        y = torch.randint(0, bundle.num_classes, (batch,), generator=gen, device=device)
+        return (lambda: bundle.model(x, 500, y)), sum(p.numel() for p in bundle.model.parameters())
+    raise SystemExit(f"unknown model {model!r}: {MODELS}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Profile one full-width forward on the card.")
-    ap.add_argument("--model", default="sd15", help="sd15 | adm128 | cifar10 | vae")
+    ap.add_argument("--model", default="sd15", help=MODELS)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--winograd", type=int, default=0, help="cifar10: 1 runs the ResnetBlock2D convs on the Winograd kernel")
     ap.add_argument("--json", help="write the breakdown as JSON to this path")

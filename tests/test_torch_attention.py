@@ -93,11 +93,11 @@ def test_split_plain_rounds_p_to_the_value_type():
 
 def test_route_policy():
     bf16, f32 = torch.bfloat16, torch.float32
-    for d in (40, 80, 160, 64, 128, 192, 256):  # SD 1.5, ADM-128, CIFAR-10
+    for d in (40, 80, 160, 64, 128, 192, 256, 72):  # SD 1.5, ADM-128, CIFAR-10, U-ViT
         assert katt.route(bf16, d, True) == "tensor_core"
         assert katt.route(bf16, d, False) == "cuda_core"
         assert katt.route(f32, d, True) == "cuda_core"
-    assert katt.route(bf16, 72, True) == "cuda_core"  # no tensor-core instance
+    assert katt.route(bf16, 48, True) == "cuda_core"  # no tensor-core instance
     for dtype in (bf16, f32):
         assert katt.route(dtype, 512, True) == "wide"
         assert katt.route(dtype, 264, True) == "wide"

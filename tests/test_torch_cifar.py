@@ -345,13 +345,12 @@ def test_dataset_cli_names_the_roadmap_item_of_what_is_not_ported():
         (["--mesh-data", "2"], "item 18"),
         (["--scheduler-type", "dpm_2_uncertainty_centered"], "item 11"),
         (["--scheduler-type", "infer_noise"], "item 9"),
-        (["--dataset", "imagenet256"], "item 13"),
     ):
         with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
             tcli.main(base + extra)
 
 
-def test_factory_random_init_is_seeded_and_routes_winograd():
+def test_factory_random_init_is_seeded_and_routes_winograd(monkeypatch):
     a = t_instantiate("cifar10", dropout=0.1, dtype=torch.float32, random_init=True, device="cpu", winograd=True)
     b = t_instantiate("cifar10", dropout=0.1, dtype=torch.float32, random_init=True, device="cpu")
     assert a.image_size == 32 and a.num_classes is None and a.model.cfg.dropout == 0.1
@@ -360,8 +359,16 @@ def test_factory_random_init_is_seeded_and_routes_winograd():
     assert not any(p.requires_grad for p in a.model.parameters())
     with pytest.raises(FileNotFoundError, match="random_init=True"):
         t_instantiate("cifar10", device="cpu", models_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_instantiate("imagenet512", random_init=True, device="cpu")
+    # imagenet512 builds a U-ViT bundle with its VAE decoder (a narrow U-ViT
+    # on the 64x64x4 latents and the tiny VAE, not 500M float32 parameters)
+    from diffusion_uncertainty_torch.models import AutoencoderKLConfig as TAutoencoderKLConfig
+    from diffusion_uncertainty_torch.models import UViTConfig as TUViTConfig
+
+    monkeypatch.setattr(TUViTConfig, "imagenet512", staticmethod(
+        lambda: TUViTConfig(img_size=64, patch_size=16, embed_dim=32, depth=2, num_heads=2)))
+    monkeypatch.setattr(TAutoencoderKLConfig, "sd_kl_ema", staticmethod(TAutoencoderKLConfig.tiny))
+    u = t_instantiate("imagenet512", dtype=torch.float32, random_init=True, device="cpu")
+    assert u.sample_shape == (64, 64, 4) and u.image_size == 512 and u.decode_fn is not None
     assert batch_seed(3, 1) != batch_seed(3, 2) != batch_seed(4, 1)
 
 
