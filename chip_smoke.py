@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and hold its kernels to account.
 
-    python3 chip_smoke.py [--details PATH]   # one card, about five minutes
+    python3 chip_smoke.py [--details PATH]   # one card, about six minutes
 
 Phases (a failure in any of them ends the run with a non-zero exit):
 
@@ -15,12 +15,15 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    3, 5, 7, 9 and 10: ADM-128 at batch 2 and 8, the SD 1.5 UNet at batch 2 (the
    CFG batch), the SD VAE decoder at batch 1 (64x64 latent), the CIFAR-10 UNet
    at batch 128 (the CLI batch), ADM-64 at batch 8 (phase 9's batch), U-ViT-huge
-   at batch 8 (the trajectory) and 40 (the folded M=5 ensemble) and the bf16
+   at batch 8 (the trajectory) and 40 (the folded M=5 ensemble), the bf16
    VAE decodes of the U-ViT datasets (a 32x32 latent at batch 8, a 64x64 latent
-   at batch 1), in bfloat16 and float32. Tolerances:
+   at batch 1) and the ImageNet-128 noisy classifier at batch 8 (phase 11; it
+   runs in float32, so its GroupNorm, attention and avg-pool shapes are timed
+   in float32, its D=64 attention on the CUDA-core route against SDPA and a
+   bound at 67 TFLOP/s of float32 FMAs), in bfloat16 and float32. Tolerances:
    interleave bit-exact (the phase interleave, the nearest upsample and their
-   pair, at every interleave shape); avg-pool within 1 bf16 ulp (one tensor
-   and a pair); each prints its route (wide / narrow: 16-byte words or
+   pair, at every interleave shape); avg-pool within 1 ulp of the type the
+   model pools in (one tensor and a pair); each prints its route (wide / narrow: 16-byte words or
    narrower). The two are timed in
    every form the ADM forwards make (a pair) and in their single forms at the
    ADM shapes, and in the SD and CIFAR-10 forwards' single form, by
@@ -154,10 +157,34 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    CPU at batch 1 with the limits of (a); one bf16 decode of a 64x64 latent
    at batch 1: [1, 512, 512, 3] finite, its attention on the wide route, the
    GroupNorms over its 512x512 maps on the pair.
+11. Classifier guidance (BASELINE config 3) and ADM w/ 2-DPM, ADM-128 from
+   the factory with seeded random weights. (a) The noisy classifier of
+   ``load_classifier("imagenet128", random_init=True)`` (float32, batch 8,
+   t=500): its logits and its guidance term sqrt(1-ab_t)·grad_x log p(y|x)
+   (``with_classifier_guidance`` around a zero eps: one forward and one
+   backward through the kernels' autograd wrappers) against the same weights
+   and inputs in float32 on the CPU, rel L2 <= 1e-4 and <= 1e-3, the plain
+   versions on the card printed beside them; a forward launches 8 attention
+   kernels (all on the CUDA-core route, D=64), 40 one-launch or paired
+   GroupNorms and 4 avg-pool pairs; the term's ms (CUDA events). (b) The
+   dataset CLI with no ``--device``: imagenet128, ``--classifier-scale
+   1.0``, uncertainty_zigzag_centered M=5 x3, 50 DDIM steps, window [40,
+   50), bf16, batch 8, 8 images; then ``compute_fid`` stats (32 synthetic
+   images) and drop, ``compute_precision_recall`` real and generated on the
+   run (seeded random Inception and VGG16): maps [8, 10, 128, 128, 3]
+   finite with positive mean, 50 guided calls (400 CUDA-core attention
+   launches and 400 attention backwards), 200 ADM forwards of batch 8 (in 80
+   calls: the zigzag members are folded), 16 tensor-core attention launches
+   an ADM call, the FID and precision/recall records written, finite, P and
+   R in [0, 1]; images/s of the sampling. (c) The same CLI with
+   ``dpm_2_uncertainty_centered`` (DPM-Solver++ order 2, 50 steps, centered
+   M=5 on [40, 50)): 100 ADM forwards in 60 calls, attention on the
+   tensor-core route only, maps [8, 10, 128, 128, 3] finite; images/s.
 
-Every forward of phases 3, 5, 7, 9a and 10 must launch each kernel of its
+Every forward of phases 3, 5, 7, 9a, 10 and 11a must launch each kernel of its
 model; each main path (phase 4, each run of phase 6, each run of phase 8, the
-AUSE, NLL and dataset-CLI runs of phase 9, and phase 10b) sets the launch
+AUSE, NLL and dataset-CLI runs of phase 9, phase 10b, and phases 11b and 11c)
+sets the launch
 counters to 0 just before and reads them just after, and fails if a kernel of
 its path never launched. Each phase prints its seconds. The last two lines are the kernels
 JSON (``launches``: the sum over the main-path runs; avg_pool_2x2 and
@@ -186,18 +213,25 @@ CIFAR_BATCH = 128  # images of the CIFAR-10 main-path run (phase 8), the CLI's b
 UVIT_BATCH = 8  # latents of the U-ViT main-path run (phase 10b)
 UVIT_M = 5  # its zigzag members, folded into one forward of UVIT_M * UVIT_BATCH
 UVIT_ATTENTION = 29  # attention launches of one U-ViT-huge forward: 14 + 1 + 14 blocks
+CLF_BATCH = 8  # images of the classifier runs (phase 11), the guided run's batch
+# launches of one forward of the ImageNet-128 noisy classifier (float32): 6
+# attention blocks in the input levels, 1 in the middle and the pool, all
+# D=64 on the CUDA-core route; 16 ResBlocks x 2 GroupNorms, 7 attention
+# norms and the output norm; 4 down ResBlocks, each pooling a pair
+CLF_FORWARD = {"attention": 8, "group_norm": 40, "avg_pool_2x2": 4}  # GroupNorm: calls on either route
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # float32 outside the tensor cores (the CUDA-core attention route)
 # float32 attention on a main path (the VAE, D=512) takes the wide kernel,
 # whose products are 3xTF32: three TF32 tensor-core products each
 F32_ATTENTION_FLOPS, F32_ATTENTION_ARITH = 495e12 / 3, "3xTF32 (495/3 TFLOP/s)"
 # the batch each model's shapes are checked at; the first is the main path's
 CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,), "adm64": (ADM64_BATCH,),
-                 "uvit": (UVIT_BATCH, UVIT_M * UVIT_BATCH), "uvae": (UVIT_BATCH,), "uvae512": (1,)}
-PAIRED = ("adm", "adm64")  # models whose forward resamples two tensors a launch
+                 "uvit": (UVIT_BATCH, UVIT_M * UVIT_BATCH), "uvae": (UVIT_BATCH,), "uvae512": (1,), "clf": (CLF_BATCH,)}
+PAIRED = ("adm", "adm64", "clf")  # models whose forward resamples two tensors a launch
 # the single form of the two resampling kernels, one tensor a launch
 RESAMPLE_FORMS = {"avg_pool_2x2": "single", "interleave_2x": "phase"}
-F32_MODELS = ("vae",)  # models whose main path runs in float32 (the SD VAE decoder)
+F32_MODELS = ("vae", "clf")  # models whose main path runs in float32 (the SD VAE decoder, the classifier)
 SRC = "diffusion_uncertainty_torch/kernels/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "group_norm": (SRC + "groupnorm.cu", "diffusion_uncertainty_tpu/ops/groupnorm.py:65"),
@@ -373,7 +407,10 @@ def main() -> None:
     from diffusion_uncertainty_torch.kernels import groupnorm as kgn
     from diffusion_uncertainty_torch.kernels import interleave as kilv
     from diffusion_uncertainty_torch.kernels import winograd as kwino
-    from diffusion_uncertainty_torch.factory import instantiate_model_scheduler
+    from diffusion_uncertainty_torch.classifier_guidance import with_classifier_guidance
+    from diffusion_uncertainty_torch.factory import instantiate_model_scheduler, load_classifier
+    from diffusion_uncertainty_torch.models import ADMClassifier
+    from diffusion_uncertainty_torch.ops import attention as ops_attention
     from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, AutoencoderKL, SDUNet, UNet2D, UViT
     from diffusion_uncertainty_torch.models.adm_unet import ResBlock
     from diffusion_uncertainty_torch.models.layers import split_qkv
@@ -529,6 +566,31 @@ def main() -> None:
     adm64_counts, adm64_routes = kernels.launch_counts(), kernels.route_counts()
     adm64_gn_routes, adm64_resample = kernels.gn_route_counts(), kernels.resample_counts()
 
+    # the ImageNet-128 noisy classifier as the factory builds it for classifier
+    # guidance (seeded random float32 weights): the guidance term, one forward
+    # and one backward, at the guided run's batch (phase 11)
+    clf = load_classifier("imagenet128", random_init=True, device=dev)
+    n_clf = sum(p.numel() for p in clf.parameters())
+    clf_sched = make_schedule("linear", 1000, device=dev)
+    xcl = torch.randn(CLF_BATCH, 128, 128, 3, generator=gen, device=dev)
+    ycl = torch.randint(0, 1000, (CLF_BATCH,), generator=gen, device=dev)
+
+    def guidance_term(model, x, y, sched, t=500):
+        """sqrt(1 - ab_t)·grad_x sum_b log p(y_b|x_b): the port's guided
+        output around a zero eps, negated."""
+        return -with_classifier_guidance(lambda *a: torch.zeros_like(x), model, sched, 1.0)(x, t, y, None)
+
+    guidance_term(clf, xcl, ycl, clf_sched)  # cuDNN plans, outside the timed call
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with Recorder(wrapper_mods) as rec_clf:
+        t0 = time.perf_counter()
+        term_clf = guidance_term(clf, xcl, ycl, clf_sched)
+        torch.cuda.synchronize()
+        clf_s = time.perf_counter() - t0
+    clf_counts, clf_routes, clf_gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
+    clf_resample = kernels.resample_counts()
+
     # U-ViT-huge/2 and /4 with their bf16 VAE as the factory builds them for
     # the dataset CLI (seeded random weights): the /2 forward at the main
     # path's batch and its decode of those latents, the /4 forward at batch 2
@@ -581,7 +643,7 @@ def main() -> None:
     # ---- phase 2: every kernel against its plain version -----------------
     sets = {"adm": shape_sets(rec_adm.sigs), "sd": shape_sets(rec_sd.sigs), "vae": shape_sets(rec_vae.sigs),
             "cifar": shape_sets(rec_cifar.sigs), "adm64": shape_sets(rec_adm64.sigs), "uvit": shape_sets(rec_uvit.sigs),
-            "uvae": shape_sets(rec_uvae.sigs), "uvae512": shape_sets(rec_uvae512.sigs)}
+            "uvae": shape_sets(rec_uvae.sigs), "uvae512": shape_sets(rec_uvae512.sigs), "clf": shape_sets(rec_clf.sigs)}
     for src, ss in sets.items():
         print(f"[2] {src} shapes: " + ", ".join(f"{k} {len(v)}" for k, v in ss.items()), flush=True)
     names = tuple(KERNELS)
@@ -702,44 +764,47 @@ def main() -> None:
         if not (e <= tol and (rel <= 5e-3 or not bf16)):
             fail(f"{name} disagrees at {(src, batch, s, s_kv, heads, d, dtype)}: max err {e} (limit {tol}), rel L2 {rel}")
         times, extra, rate = None, {}, BF16_FLOPS
-        # bf16 everywhere; float32 where a main path runs attention in float32
-        # (the VAE decodes in float32)
-        if bf16 or src in F32_MODELS:
+        # in the type the model's main path runs attention in: bf16, float32
+        # for the SD VAE decoder and the classifier
+        if bf16 != (src in F32_MODELS):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             times = {"ms": device_ms(lambda: katt.attention(q, k, v, kv_len)),
                      "plain_ms": device_ms(lambda: katt.attention_plain(q, k, v, kv_len)),
                      "library_ms": device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))}
-            if not bf16:
-                rate = F32_ATTENTION_FLOPS
+            if not bf16:  # the wide route's products are 3xTF32, the CUDA-core route's float32 FMAs
+                rate, arith = (F32_FLOPS, "float32 CUDA cores (67 TFLOP/s)") if route == "cuda_core" else \
+                    (F32_ATTENTION_FLOPS, F32_ATTENTION_ARITH)
                 extra = {"sdpa_backend": sdpa_backend(qt, kt, vt), "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-                         "bound_rate": F32_ATTENTION_ARITH}
+                         "bound_rate": arith}
         n_keys = s_kv if kv_len is None else kv_len
         es = q.element_size()
         n_bytes = (2 * batch * s * heads * d + 2 * batch * n_keys * heads * d) * es
         note(name, e, src, batch, dtype, [batch, s, s_kv, heads, d, layout], tol, times, n_bytes,
              4.0 * batch * heads * s * n_keys * d, rate, plain_max=ref_max, rel_l2=rel, route=route, **extra)
 
-    def resample_times(kind, form, shape):
+    def resample_times(kind, form, shape, dtype=torch.bfloat16):
         """(times, bytes moved, extras) of one form at one shape (bench_resample)."""
-        r = measure(kpool, kilv, kind, form, shape, gen, clocks)
+        r = measure(kpool, kilv, kind, form, shape, gen, clocks, dtype)
         times = {k: r[k] for k in ("ms", "plain_ms", "library_ms", "device_only_ms", "host_us")}
-        return times, BOUND_INPUTS[(kind, form)] * math.prod(shape) * 2, {"route": r["route"], "form": form}
+        return times, BOUND_INPUTS[(kind, form)] * math.prod(shape) * dtype.itemsize, {"route": r["route"], "form": form}
 
     def pool_checks(src, batch, h, w, c):
-        x, y = rnd(batch, h, w, c), rnd(batch, h, w, c)
+        dtype = torch.float32 if src in F32_MODELS else torch.bfloat16  # the type the model pools in
+        x, y = rnd(batch, h, w, c, dtype=dtype), rnd(batch, h, w, c, dtype=dtype)
         kernels.reset_launch_counts()
         got = (kpool.avg_pool_2x2(x), *kpool.avg_pool_2x2_pair(x, y))
         route = "+".join(r for r, n in kernels.resample_counts()["avg_pool_2x2"].items() if n)
         e = 0.0
         for g, ref in zip(got, (kpool.avg_pool_2x2_plain(x), *kpool.avg_pool_2x2_pair_plain(x, y))):
             diff = (g.float() - ref.float()).abs()
-            if not bool((diff <= bf16_ulp(ref)).all()):
-                fail(f"avg_pool_2x2 ({route}) disagrees by more than 1 bf16 ulp at {(src, batch, h, w, c)}")
+            ulp = bf16_ulp(ref) * (1.0 if dtype == torch.bfloat16 else 2.0**-16)
+            if not bool((diff <= ulp).all()):
+                fail(f"avg_pool_2x2 ({route}) disagrees by more than 1 ulp at {(src, batch, h, w, c, dtype)}")
             e = max(e, float(diff.max()))
         main = "pair" if src in PAIRED else "single"
         for form in ("single", "pair") if src in PAIRED else ("single",):
-            times, nbytes, extra = resample_times("pool", form, (batch, h, w, c))
-            note("avg_pool_2x2", e, src, batch, torch.bfloat16, [batch, h, w, c, form], "1 ulp", times, nbytes, 0.0,
+            times, nbytes, extra = resample_times("pool", form, (batch, h, w, c), dtype)
+            note("avg_pool_2x2", e, src, batch, dtype, [batch, h, w, c, form], "1 ulp", times, nbytes, 0.0,
                  summed=form == main, checked=route, **extra)
 
     def interleave_checks(src, batch, h, w, c):
@@ -1206,6 +1271,36 @@ def main() -> None:
         fail(f"ADM-64 forward: relative L2 error {adm64_rel} > 2e-2")
     metric_runs = {}
 
+    def extractor_weights(root):
+        """Seeded random Inception and VGG16 state dicts saved under root."""
+        weights = {arch: os.path.join(root, f"{arch}.pth") for arch in ("inception", "vgg16")}
+        for arch, path in weights.items():
+            torch.save(random_state_dict(arch, seed=SEED), path)
+        return weights
+
+    def fid_and_pr(dataset, run, n_real, weights):
+        """compute_fid stats (n_real synthetic images) and drop, then
+        compute_precision_recall real and generated, on a dataset-CLI run:
+        (scores, FID s, P&R s); fails unless every score is finite and P and
+        R lie in [0, 1]."""
+        common = ["--dataset", dataset, "--batch-size", "16"]
+        drop = ["--run-dir", str(run), "--drop-fraction", "0.25"]
+        t0 = time.perf_counter()
+        compute_fid.main(common + ["--mode", "stats", "--num-samples", str(n_real), "--inception-weights", weights["inception"]])
+        fids = compute_fid.main(common + ["--mode", "drop", "--inception-weights", weights["inception"]] + drop)
+        fid_s = time.perf_counter() - t0
+        compute_precision_recall.main(common + ["--mode", "real", "--num-samples", str(n_real), "--vgg-weights", weights["vgg16"]])
+        pr = compute_precision_recall.main(common + ["--mode", "generated", "--k", "3", "--vgg-weights", weights["vgg16"]] + drop)
+        pr_s = time.perf_counter() - t0 - fid_s
+        scores = {k: fids[k] for k in ("fid_drop_most", "fid_drop_random")}
+        scores.update({k: pr[k] for k in ("precision_drop_most", "recall_drop_most", "precision_drop_random",
+                                          "recall_drop_random")})
+        if not all(math.isfinite(v) for v in scores.values()):
+            fail(f"metrics: a non-finite score {scores}")
+        if not all(0.0 <= v <= 1.0 for k, v in scores.items() if not k.startswith("fid")):
+            fail(f"metrics: precision or recall outside [0, 1]: {scores}")
+        return scores, fid_s, pr_s
+
     def path_run(tag, fn):
         """One main-path run of phase 9 between zeroed and read counters:
         every ADM kernel launches, attention on the tensor-core route."""
@@ -1259,10 +1354,7 @@ def main() -> None:
             "--dataset", "imagenet64", "--scheduler-type", "uncertainty_centered", "--random-init", "true",
             "--num-samples", str(n_img), "--batch-size", "16", "--M", "5", "--generation-steps", "10",
             "--start-step-uc", "5", "--num-steps-uc", "5"]))
-        weights = {}
-        for arch in ("inception", "vgg16"):
-            weights[arch] = os.path.join(root, f"{arch}.pth")
-            torch.save(random_state_dict(arch, seed=SEED), weights[arch])
+        weights = extractor_weights(root)
         imgs = torch.from_numpy(load_run_arrays(run, "gen_images")[:16]).to(dev)
         for arch, make in (("inception", InceptionV3Features), ("vgg16", VGG16Features)):
             ext, ext_cpu = make(weights[arch]), make(weights[arch], device="cpu")
@@ -1276,24 +1368,9 @@ def main() -> None:
                 fail(f"{arch} features: finite {bool(torch.isfinite(feats).all())}, rel L2 against the CPU {ext_rel}")
             metric_runs[f"{arch} features"] = {"rel_l2": ext_rel, "batch_ms": ms, "features_per_s": 16e3 / ms}
             del ext, ext_cpu
-        common = ["--dataset", "imagenet64", "--batch-size", "16"]
-        drop = ["--run-dir", str(run), "--drop-fraction", "0.25"]
-        t0 = time.perf_counter()
-        compute_fid.main(common + ["--mode", "stats", "--num-samples", str(n_img), "--inception-weights", weights["inception"]])
-        fids = compute_fid.main(common + ["--mode", "drop", "--inception-weights", weights["inception"]] + drop)
-        fid_s = time.perf_counter() - t0
-        compute_precision_recall.main(common + ["--mode", "real", "--num-samples", str(n_img), "--vgg-weights", weights["vgg16"]])
-        pr = compute_precision_recall.main(common + ["--mode", "generated", "--k", "3", "--vgg-weights", weights["vgg16"]] + drop)
-        pr_s = time.perf_counter() - t0 - fid_s
-        scores = {k: fids[k] for k in ("fid_drop_most", "fid_drop_random")}
-        scores.update({k: pr[k] for k in ("precision_drop_most", "recall_drop_most", "precision_drop_random",
-                                          "recall_drop_random")})
+        scores, fid_s, pr_s = fid_and_pr("imagenet64", run, n_img, weights)
         print(f"[9d] FID stats + drop ({n_img} real, {n_img} generated, 25% dropped; {fid_s:.1f} s) and precision/recall "
               f"real + generated (k=3; {pr_s:.1f} s): {json.dumps(scores)}", flush=True)
-        if not all(math.isfinite(v) for v in scores.values()):
-            fail(f"metrics: a non-finite score {scores}")
-        if not all(0.0 <= pr[k] <= 1.0 for k in scores if not k.startswith("fid")):
-            fail(f"metrics: precision or recall outside [0, 1]: {scores}")
         # the random model's images lie off the real manifold (0 is a right
         # answer there); two halves of the real features overlap, on the card
         # as on the CPU
@@ -1430,13 +1507,179 @@ def main() -> None:
     del uvit, uvit512
     lap(10)
 
+    # ---- phase 11: classifier guidance (BASELINE config 3) and ADM w/ 2-DPM --
+    # 11a: the classifier's guidance term of the recording run (one forward
+    # and one backward at batch 8) against float32 on the CPU
+    clf_calls = {"attention": clf_counts["attention"], "group_norm": sum(clf_gn_routes.values()),
+                 "avg_pool_2x2": clf_counts["avg_pool_2x2"]}
+    if clf_calls != CLF_FORWARD:
+        fail(f"classifier: kernel calls a forward {clf_calls}, want {CLF_FORWARD}: {clf_counts}")
+    if clf_routes["cuda_core"] != CLF_FORWARD["attention"] or clf_resample["avg_pool_2x2"]["pair"] != CLF_FORWARD["avg_pool_2x2"]:
+        fail(f"classifier: attention routes {clf_routes}, avg-pool {clf_resample['avg_pool_2x2']}: want "
+             f"{CLF_FORWARD['attention']} CUDA-core launches and {CLF_FORWARD['avg_pool_2x2']} pairs")
+    with torch.no_grad():
+        logits_clf = clf(xcl, 500)
+    if not (bool(torch.isfinite(term_clf).all()) and bool(torch.isfinite(logits_clf).all()) and float(term_clf.abs().max()) > 0):
+        fail(f"classifier: the guidance term is not finite and non-zero (max |term| {float(term_clf.abs().max())})")
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        cpu_clf = ADMClassifier(clf.cfg)
+    cpu_clf.load_state_dict({k: v.cpu() for k, v in clf.state_dict().items()}, assign=True)
+    cpu_clf.eval()
+    x_cpu = xcl.cpu()
+    with torch.no_grad():
+        ref_logits = cpu_clf(x_cpu, 500)
+    ref_term = guidance_term(cpu_clf, x_cpu, ycl.cpu(), make_schedule("linear", 1000, device="cpu"))
+    clf_cpu_s = time.perf_counter() - t0
+    del cpu_clf
+    with torch.no_grad(), PlainKernels(wrapper_mods, plains):
+        plain_logits = clf(xcl, 500)
+    with PlainKernels(wrapper_mods, plains):
+        plain_term = guidance_term(clf, xcl, ycl, clf_sched)
+    clf_rel = {"logits": rel_l2(logits_clf, ref_logits), "term": rel_l2(term_clf, ref_term),
+               "plain_logits": rel_l2(plain_logits, ref_logits), "plain_term": rel_l2(plain_term, ref_term)}
+    clf_ms = device_ms(lambda: guidance_term(clf, xcl, ycl, clf_sched), reps=3, inner=3)
+    print(f"[11a] ImageNet-128 classifier ({n_clf / 1e6:.1f}M params, float32, batch {CLF_BATCH}): guidance term "
+          f"(forward + backward) {clf_s:.3f} s first timed call, {clf_ms:.3f} ms (CUDA events around 3 calls) on {card}; "
+          f"vs float32 CPU (batch {CLF_BATCH}, {clf_cpu_s:.1f} s): logits rel L2 {clf_rel['logits']:.3e} (limit 1e-4), "
+          f"term rel L2 {clf_rel['term']:.3e} (limit 1e-3); the plain versions on the card: {clf_rel['plain_logits']:.3e}, "
+          f"{clf_rel['plain_term']:.3e}", flush=True)
+    print(f"[11a] kernels a forward {json.dumps(clf_counts)}; attention routes {json.dumps(clf_routes)}; GroupNorm routes "
+          f"{json.dumps(clf_gn_routes)}; avg-pool {json.dumps(clf_resample['avg_pool_2x2'])}", flush=True)
+    if not (clf_rel["logits"] <= 1e-4 and clf_rel["term"] <= 1e-3):
+        fail(f"classifier against float32 on the CPU: {clf_rel}")
+    guided_runs = {"classifier": {"params": n_clf, "first_call_s": clf_s, "term_ms": clf_ms, **clf_rel,
+                                  "launches": clf_counts, "routes": clf_routes, "gn_routes": clf_gn_routes}}
+    del clf
+
+    adm_per_forward = adm_fwd_counts["attention"]  # tensor-core launches of one ADM-128 forward (phase 3)
+    calls = {"adm": [0, 0], "guided": 0, "attention_bwd": 0}  # ADM calls and member forwards, guided calls, backwards
+    saved = dataset_cli.instantiate_model_scheduler, dataset_cli.with_classifier_guidance, ops_attention.attention_bwd
+    saved_gen = dataset_cli.generate_uncertainty_dataset
+
+    def counted_bundle(*a, **kw):
+        bundle = saved[0](*a, **kw)
+
+        def hook(module, args):
+            calls["adm"][0] += 1
+            calls["adm"][1] += args[0].shape[0] // CLF_BATCH
+
+        bundle.model.register_forward_pre_hook(hook)
+        return bundle
+
+    def counted_guidance(*a, **kw):
+        guided = saved[1](*a, **kw)
+
+        def call(*args):
+            calls["guided"] += 1
+            return guided(*args)
+
+        return call
+
+    def counted_bwd(*a, **kw):
+        calls["attention_bwd"] += 1
+        return saved[2](*a, **kw)
+
+    gen_s = [0.0]
+
+    def timed_generation(*a, **kw):  # the span the CLI times itself
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved_gen(*a, **kw)
+        torch.cuda.synchronize()
+        gen_s[0] = time.perf_counter() - t0
+        return out
+
+    def cli_run(tag, argv):
+        """One run of the dataset CLI (no --device) between zeroed and read counters."""
+        calls.update(adm=[0, 0], guided=0, attention_bwd=0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = dataset_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routes, gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
+        u = load_run_arrays(run, "uncertainty")
+        imgs = load_run_arrays(run, "gen_images")
+        r = {"run": str(run), "s": wall, "generation_s": gen_s[0], "images_per_s": len(imgs) / gen_s[0],
+             "adm_calls": calls["adm"][0], "adm_forwards": calls["adm"][1], "guided_calls": calls["guided"],
+             "attention_backwards": calls["attention_bwd"], "launches": counts, "routes": routes, "gn_routes": gn_routes,
+             "uncertainty_shape": list(u.shape), "uncertainty_mean": float(u.mean())}
+        print(f"[{tag}] kernels {json.dumps(counts)}; attention routes {json.dumps(routes)}; GroupNorm routes "
+              f"{json.dumps(gn_routes)}; {r['adm_calls']} ADM calls ({r['adm_forwards']} forwards of batch {CLF_BATCH}), "
+              f"{r['guided_calls']} guided calls, {r['attention_backwards']} attention backwards", flush=True)
+        if not (imgs.shape == (CLF_BATCH, 128, 128, 3) and u.shape == (CLF_BATCH, 10, 128, 128, 3)
+                and bool(np.isfinite(u).all()) and u.mean() > 0):
+            fail(f"{tag}: images {imgs.shape}, uncertainty {u.shape}, finite {bool(np.isfinite(u).all())}, mean {u.mean()}")
+        if routes["tensor_core"] != adm_per_forward * r["adm_calls"]:
+            fail(f"{tag}: {routes['tensor_core']} tensor-core attention launches, want {adm_per_forward} a call of ADM-128 "
+                 f"({r['adm_calls']} calls)")
+        return run, r
+
+    dataset_cli.instantiate_model_scheduler, dataset_cli.with_classifier_guidance = counted_bundle, counted_guidance
+    ops_attention.attention_bwd, dataset_cli.generate_uncertainty_dataset = counted_bwd, timed_generation
+    saved_root = os.environ.get("DIFFUSION_UNCERTAINTY_ROOT")
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = root
+            generate_starting_points.main(["--datasets", "imagenet128", "--num-samples", str(CLF_BATCH), "--extra-samples", "0"])
+            cli = ["--dataset", "imagenet128", "--random-init", "true", "--M", "5", "--generation-steps", "50",
+                   "--start-step-uc", "40", "--num-steps-uc", "10", "--batch-size", str(CLF_BATCH),
+                   "--num-samples", str(CLF_BATCH)]
+            # 11b: BASELINE config 3, the guided zigzag run, then its FID and precision/recall
+            run, r = cli_run("11b", cli + ["--classifier-scale", "1.0", "--scheduler-type", "uncertainty_zigzag_centered",
+                                           "--num-zigzag", "3"])
+            check_counts(r["launches"], ADM_PATH, "guided run")
+            if (r["guided_calls"] != 50 or r["routes"]["cuda_core"] != CLF_FORWARD["attention"] * 50
+                    or r["attention_backwards"] != CLF_FORWARD["attention"] * 50 or r["adm_forwards"] != 200
+                    or r["adm_calls"] != 80):
+                fail(f"guided run: {r['guided_calls']} classifier forwards and backwards ({r['routes']['cuda_core']} "
+                     f"CUDA-core attention launches, {r['attention_backwards']} attention backwards) and "
+                     f"{r['adm_forwards']} ADM forwards in {r['adm_calls']} calls; want 50 ({8 * 50}, {8 * 50}) and 200 "
+                     f"in 80")
+            n_real = 4 * CLF_BATCH
+            scores, fid_s, pr_s = fid_and_pr("imagenet128", run, n_real, extractor_weights(root))
+            records = (paths.results() / "fid_scores.json").exists() and (paths.results() / "precision_recall.json").exists()
+            print(f"[11b] BASELINE config 3 (ADM-128 guided by the float32 classifier at scale 1.0, zigzag M=5 x3, 50 DDIM "
+                  f"steps, window [40, 50), bf16, batch {CLF_BATCH}, dataset CLI): {r['generation_s']:.2f} s sampling, "
+                  f"{r['images_per_s']:.4f} images/s on {card} ({r['s']:.2f} s with the set-up); uncertainty mean "
+                  f"{r['uncertainty_mean']:.4e}; FID stats + drop ({n_real} synthetic real, {CLF_BATCH} generated, 25% "
+                  f"dropped; {fid_s:.1f} s) and precision/recall (k=3; {pr_s:.1f} s): {json.dumps(scores)}; records "
+                  f"written {records}", flush=True)
+            if not records:
+                fail("guided run metrics: the FID or precision/recall record was not written")
+            guided_runs["guided"] = {**r, **scores, "fid_s": fid_s, "pr_s": pr_s}
+
+            # 11c: ADM w/ 2-DPM, the centered estimator on DPM-Solver++
+            run, r = cli_run("11c", cli + ["--scheduler-type", "dpm_2_uncertainty_centered"])
+            check_counts(r["launches"], ADM_PATH, "DPM run")
+            check_tc_routes(r["routes"], "DPM run")
+            if r["adm_forwards"] != 100 or r["adm_calls"] != 60:
+                fail(f"DPM run: {r['adm_forwards']} ADM forwards in {r['adm_calls']} calls, want 100 in 60 (50 trajectory, "
+                     f"10 folded M=5 ensembles)")
+            print(f"[11c] ADM w/ 2-DPM (DPM-Solver++ order 2, 50 steps, centered M=5 on [40, 50), bf16, batch {CLF_BATCH}, "
+                  f"dataset CLI): {r['generation_s']:.2f} s sampling, {r['images_per_s']:.4f} images/s on {card} "
+                  f"({r['s']:.2f} s with the set-up); maps {r['uncertainty_shape']}, mean {r['uncertainty_mean']:.4e}",
+                  flush=True)
+            guided_runs["dpm"] = r
+    finally:
+        dataset_cli.instantiate_model_scheduler, dataset_cli.with_classifier_guidance = saved[:2]
+        ops_attention.attention_bwd, dataset_cli.generate_uncertainty_dataset = saved[2], saved_gen
+        if saved_root is None:
+            os.environ.pop("DIFFUSION_UNCERTAINTY_ROOT", None)
+        else:
+            os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = saved_root
+    details.update(guided_runs=guided_runs)
+    lap(11)
+
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
             json.dump(details, f, indent=1, default=str)
 
     path_runs = (*sd_runs.values(), *cifar_runs.values(), *(r for r in metric_runs.values() if "launches" in r),
-                 uvit_runs["main path"])
+                 uvit_runs["main path"], guided_runs["guided"], guided_runs["dpm"])
     launches = {k: adm_launches[k] + sum(r["launches"][k] for r in path_runs) for k in names}
     entries = []
     for k, (src, replaces) in KERNELS.items():
@@ -1457,7 +1700,8 @@ def main() -> None:
                       and r["batch"] == CHECK_BATCHES[r["model"]][0]]
             entry.update({key: sum(v[key] for (w, _, _), v in sums.items() if w == k)
                           for key in ("device_only_ms", "host_us")},
-                         forms="ADM-128, ADM-64: pair (two tensors a launch); SD, CIFAR-10: single",
+                         forms="ADM-128, ADM-64, the ImageNet-128 classifier (float32): pair (two tensors a launch); "
+                               "SD, CIFAR-10: single",
                          single_form={key: sum(r[key] for r in single)
                                       for key in ("ms", "device_only_ms", "host_us", "plain_ms", "library_ms", "bound_ms")})
         entries.append(entry)

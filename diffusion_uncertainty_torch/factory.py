@@ -1,8 +1,8 @@
 """Model and schedule factory of the dataset-generation CLI.
 
 JAX counterpart: ``diffusion_uncertainty_tpu/factory.py`` (``ModelBundle``,
-``init_scheduler``, ``instantiate_model_scheduler``). The same hard-coded
-settings per dataset:
+``init_scheduler``, ``instantiate_model_scheduler``, ``load_classifier``).
+The same hard-coded settings per dataset:
 
   imagenet64  ADM-64, cosine schedule, dropout ``dropout or 0.1``
   imagenet128 ADM-128, linear schedule (1e-4, 0.02), dropout ``dropout``
@@ -24,6 +24,13 @@ VAE, N(0, 0.02²) with LayerNorm and GroupNorm scales at 1 and shifts at 0
 (the JAX factory's constant ``0.02 * ones`` VAE decodes to flat images).
 ``winograd=True`` builds the model with its Winograd route on (the JAX
 package's ``DU_TPU_WINOGRAD=1``; the CLI reads that variable).
+
+``load_classifier`` builds the noisy ADM classifier of classifier guidance
+(``ADMClassifierConfig.imagenet`` at the dataset's size) in float32 by
+default, as JAX, from ``64x64_classifier.pt`` / ``128x128_classifier.pt``;
+its random init is ``init_normal_`` from a generator seeded with 0 (norm
+scales 1, shifts 0; the JAX factory draws every leaf, norms included, as
+``0.02 * normal``).
 """
 
 from __future__ import annotations
@@ -35,12 +42,17 @@ from typing import Any, Callable, Optional
 import torch
 
 from .diffusion.schedule import NoiseSchedule, cosine_schedule, make_schedule
-from .models import ADMUNet, ADMUNetConfig, AutoencoderKL, AutoencoderKLConfig, UNet2D, UNet2DConfig, UViT, UViTConfig
+from .models import (
+    ADMClassifier, ADMClassifierConfig, ADMUNet, ADMUNetConfig, AutoencoderKL, AutoencoderKLConfig, UNet2D, UNet2DConfig,
+    UViT, UViTConfig,
+)
 from .models.layers import GroupNorm32
 from .utils import paths
 from .utils.device import resolve_device
 
-__all__ = ["ModelBundle", "DATASET_IMAGE_SIZE", "instantiate_model_scheduler", "init_scheduler", "init_normal_"]
+__all__ = [
+    "ModelBundle", "DATASET_IMAGE_SIZE", "instantiate_model_scheduler", "init_scheduler", "init_normal_", "load_classifier",
+]
 
 DATASET_IMAGE_SIZE = {
     "imagenet64": 64,
@@ -55,6 +67,8 @@ DATASET_IMAGE_SIZE = {
 _CHECKPOINTS = {
     "imagenet64": "64x64_diffusion.pt",
     "imagenet128": "128x128_diffusion.pt",
+    "imagenet64_classifier": "64x64_classifier.pt",
+    "imagenet128_classifier": "128x128_classifier.pt",
     "cifar10": "ddpm-cifar10-32.bin",
     "imagenet256": "imagenet256_uvit_huge.pth",
     "imagenet512": "imagenet512_uvit_huge.pth",
@@ -218,3 +232,26 @@ def _instantiate_uvit(dataset, dtype, checkpoint, random_init, models_dir, dev) 
         sample_shape=(cfg.img_size, cfg.img_size, cfg.in_chans),
         decode_fn=ae.decode,
     )
+
+
+def load_classifier(
+    dataset: str,
+    dtype: torch.dtype = torch.float32,
+    checkpoint: Optional[Path] = None,
+    random_init: bool = False,
+    models_dir: Optional[Path] = None,
+    device: Any = "cuda",
+) -> ADMClassifier:
+    """The dataset's noisy ADM classifier (JAX ``load_classifier``) on
+    ``device``, in ``dtype``, eval mode, 4-D weights channels_last, no
+    autograd on the parameters (the guidance differentiates in x only)."""
+    dev = resolve_device(device)
+    cfg = ADMClassifierConfig.imagenet(DATASET_IMAGE_SIZE[dataset])
+    with torch.device("meta"):
+        model = ADMClassifier(cfg)
+    if random_init:
+        model = init_normal_(model.to_empty(device=dev), torch.Generator(device=dev).manual_seed(0))
+    else:
+        models_dir = Path(models_dir or paths.models_dir())
+        _load(model, Path(checkpoint) if checkpoint else models_dir / _CHECKPOINTS.get(f"{dataset}_classifier", ""))
+    return model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval().requires_grad_(False)

@@ -1,9 +1,10 @@
 """Models of the port (JAX counterpart: ``diffusion_uncertainty_tpu/models/``).
 Parameters use the reference's torch state-dict layout."""
 
-from .adm_unet import ADMUNet, ADMUNetConfig  # noqa: F401
+from .adm_unet import ADMClassifier, ADMClassifierConfig, ADMUNet, ADMUNetConfig  # noqa: F401
 from .autoencoder import AutoencoderKL, AutoencoderKLConfig  # noqa: F401
 from .convert import (  # noqa: F401
+    adm_classifier_state_dict_from_flax,
     adm_state_dict_from_flax,
     autoencoder_kl_state_dict_from_flax,
     sd_unet_state_dict_from_flax,

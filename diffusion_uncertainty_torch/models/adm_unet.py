@@ -1,7 +1,8 @@
 """ADM (guided-diffusion) UNet in PyTorch, NHWC activations.
 
 JAX counterpart: ``diffusion_uncertainty_tpu/models/adm_unet.py`` (``ADMUNet``,
-``ResBlock``, ``_SplitInputConv``, ``_Downsample``, ``_Upsample``). The module
+``ResBlock``, ``_SplitInputConv``, ``_Downsample``, ``_Upsample``,
+``ADMClassifierConfig``, ``_AttentionPool``, ``ADMClassifier``). The module
 tree and parameter names are the reference's torch ``UNetModel``
 (``input_blocks.N.0.in_layers.0.weight``, ...), so a reference state dict
 loads with ``load_state_dict``; ``convert.adm_state_dict_from_flax`` gives the
@@ -23,9 +24,14 @@ split-skip ``in_conv``, the second fusing the first as its residual, as
 ``conv_in``, ``conv_out`` and the up/down-sampling convs never take it, as
 in the JAX model.
 
+``ADMClassifier`` is the noisy classifier of classifier guidance, the
+reference's ``EncoderUNetModel``: the UNet encoder (``ResBlock`` with
+``down=True``, new-order ``AttentionBlock``) and a pooled 1000-way head, with
+the reference's state-dict keys (``convert.adm_classifier_state_dict_from_flax``
+gives the same dict from the JAX parameters).
+
 Not ported yet: the activation-noise and gradient taps (used by the
-``uncertainty`` and ``flip_grad`` estimators) and ``ADMClassifier``
-(classifier guidance).
+``uncertainty`` and ``flip_grad`` estimators).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.attention import dot_product_attention
 from ..ops.avgpool import avg_pool_2x2_pair
 from ..ops.fused_upsample import conv2d_nhwc, interleave_and_upsample_2x
 from ..ops.groupnorm import group_norm_silu
@@ -48,10 +55,11 @@ from .layers import (
     avg_pool_2x,
     dropout,
     nearest_upsample,
+    split_qkv,
     timestep_embedding,
 )
 
-__all__ = ["ADMUNetConfig", "ADMUNet", "ResBlock"]
+__all__ = ["ADMUNetConfig", "ADMUNet", "ResBlock", "ADMClassifierConfig", "ADMClassifier"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,3 +331,116 @@ class ADMUNet(nn.Module):
         gn = self.out[0]
         h = group_norm_silu(h, gn.weight, gn.bias)
         return self.out[2](h).float()
+
+
+@dataclasses.dataclass(frozen=True)
+class ADMClassifierConfig:
+    """The reference's ``create_classifier_openai_imagenet`` settings."""
+
+    image_size: int = 64
+    in_channels: int = 3
+    model_channels: int = 128  # classifier_width
+    out_channels: int = 1000
+    num_res_blocks: int = 2  # classifier_depth
+    attention_resolutions: Tuple[int, ...] = (2, 4, 8)  # downsample factors of the 32, 16, 8 px maps
+    channel_mult: Tuple[int, ...] = (1, 2, 3, 4)
+    num_head_channels: int = 64
+    use_scale_shift_norm: bool = True
+    resblock_updown: bool = True
+    # "attention": the CLIP-style head (reference ``AttentionPool2d``); any
+    # other value: the spatial mean and a 1x1-conv head (reference "adaptive")
+    pool: str = "attention"
+
+    @staticmethod
+    def imagenet(image_size: int) -> "ADMClassifierConfig":
+        mult = {64: (1, 2, 3, 4), 128: (1, 1, 2, 3, 4), 256: (1, 1, 2, 2, 4, 4)}[image_size]
+        attention_ds = tuple(image_size // r for r in (32, 16, 8))
+        return ADMClassifierConfig(image_size=image_size, channel_mult=mult, attention_resolutions=attention_ds)
+
+
+class _AttentionPool(nn.Module):
+    """CLIP-style attention pooling (reference ``AttentionPool2d``): the mean
+    token in front of the H·W tokens, a learned positional embedding
+    [C, H·W+1], a 1×1-conv qkv projection in the new (qkv-major) order,
+    attention over all H·W+1 tokens, and the output projection of the mean
+    token's row."""
+
+    def __init__(self, spatial: int, channels: int, num_head_channels: int, out_channels: int):
+        super().__init__()
+        self.num_heads = channels // num_head_channels
+        self.positional_embedding = nn.Parameter(torch.randn(channels, spatial * spatial + 1) / channels**0.5)
+        self.qkv_proj = nn.Conv1d(channels, 3 * channels, 1)
+        self.c_proj = nn.Conv1d(channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        tokens = x.reshape(b, h * w, c).float()
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        tokens = (tokens + self.positional_embedding.float().t()[None]).to(self.qkv_proj.weight.dtype)
+        qkv = F.linear(tokens, self.qkv_proj.weight.view(3 * c, c), self.qkv_proj.bias)
+        q, k, v = split_qkv(qkv, self.num_heads, legacy=False)
+        out = dot_product_attention(q, k, v)[:, 0].reshape(b, c)
+        return F.linear(out, self.c_proj.weight.view(-1, c), self.c_proj.bias)
+
+
+class ADMClassifier(nn.Module):
+    """The noisy ImageNet classifier of classifier guidance (reference
+    ``EncoderUNetModel``).
+
+    ``forward(x [B,H,W,C], t (int | [1] | [B]))`` -> float32 logits
+    [B, out_channels]; a batch-1 timestep embedding is broadcast to the
+    batch. The module runs in its parameters' type (float32 as the factory
+    builds it)."""
+
+    def __init__(self, cfg: ADMClassifierConfig):
+        super().__init__()
+        self.cfg = cfg
+        mc = cfg.model_channels
+        td = 4 * mc
+        ss = cfg.use_scale_shift_norm
+        self.time_embed = nn.Sequential(nn.Linear(mc, td), nn.SiLU(), nn.Linear(td, td))
+
+        def attn(ch: int) -> AttentionBlock:
+            return AttentionBlock(ch, num_head_channels=cfg.num_head_channels, legacy_order=False)
+
+        self.input_blocks = nn.ModuleList([nn.ModuleList([Conv3x3(cfg.in_channels, mc)])])
+        ch, ds = mc, 1
+        for level, mult in enumerate(cfg.channel_mult):
+            for _ in range(cfg.num_res_blocks):
+                layers = [ResBlock(ch, mult * mc, td, ss)]
+                ch = mult * mc
+                if ds in cfg.attention_resolutions:
+                    layers.append(attn(ch))
+                self.input_blocks.append(nn.ModuleList(layers))
+            if level != len(cfg.channel_mult) - 1:
+                down = ResBlock(ch, ch, td, ss, down=True) if cfg.resblock_updown else _Downsample(ch, True)
+                self.input_blocks.append(nn.ModuleList([down]))
+                ds *= 2
+        self.middle_block = nn.ModuleList([ResBlock(ch, ch, td, ss), attn(ch), ResBlock(ch, ch, td, ss)])
+        spatial = cfg.image_size // ds
+        if cfg.pool == "attention":
+            head = [_AttentionPool(spatial, ch, cfg.num_head_channels, cfg.out_channels)]
+        else:  # the pool holds no parameters; it keeps the head conv at the reference's out.3
+            head = [nn.AdaptiveAvgPool2d(1), Conv2d(ch, cfg.out_channels, 1)]
+        self.out = nn.ModuleList([GroupNorm32(ch), nn.SiLU(), *head])
+
+    def forward(self, x: torch.Tensor, t) -> torch.Tensor:
+        cfg = self.cfg
+        dtype = self.time_embed[0].weight.dtype
+        emb = timestep_embedding(t, cfg.model_channels, cos_first=True, device=x.device)
+        emb = self.time_embed[0](emb.to(dtype))
+        emb = self.time_embed[2](F.silu(emb))
+        if emb.shape[0] == 1 and x.shape[0] > 1:
+            emb = emb.expand(x.shape[0], -1)
+
+        h = self.input_blocks[0][0](x.to(dtype))
+        for layers in (*self.input_blocks[1:], self.middle_block):
+            for layer in layers:
+                h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+        gn = self.out[0]
+        h = group_norm_silu(h, gn.weight, gn.bias)
+        if cfg.pool == "attention":
+            return self.out[2](h).float()
+        conv = self.out[3]
+        pooled = h.mean(dim=(1, 2))
+        return F.linear(pooled, conv.weight.view(cfg.out_channels, -1), conv.bias).float()

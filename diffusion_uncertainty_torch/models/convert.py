@@ -10,6 +10,10 @@ exactly:
 
 * ``adm_state_dict_from_flax`` inverts ``convert_adm_unet`` (and its legacy
   qkv row permutation);
+* ``adm_classifier_state_dict_from_flax`` inverts ``convert_adm_classifier``
+  (the reference ``EncoderUNetModel`` layout: new-order attention, the
+  ``AttentionPool2d`` head, or the "adaptive" 1×1-conv head that the JAX
+  model's mean pool computes);
 * ``unet2d_state_dict_from_flax`` inverts ``convert_unet2d`` (the diffusers
   ``UNet2DModel`` layout of ``google/ddpm-cifar10-32``);
 * ``sd_unet_state_dict_from_flax`` inverts ``convert_sd_unet`` (diffusers
@@ -31,6 +35,7 @@ import torch
 
 __all__ = [
     "adm_state_dict_from_flax",
+    "adm_classifier_state_dict_from_flax",
     "unet2d_state_dict_from_flax",
     "sd_unet_state_dict_from_flax",
     "autoencoder_kl_state_dict_from_flax",
@@ -207,6 +212,50 @@ def adm_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
     out.put("out.0.weight", P["out_norm_scale"])
     out.put("out.0.bias", P["out_norm_bias"])
     out.conv("out.2", P["conv_out"])
+    return out.sd
+
+
+def adm_classifier_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``ADMClassifier`` params -> reference ``EncoderUNetModel`` state
+    dict. Walks the same block program as ``convert_adm_classifier``; the
+    pool's positional embedding goes back to [C, H·W+1] and its projections
+    to 1×1 Conv1d weights."""
+    P = params.get("params", params)
+    out = _Out()
+    mc = cfg.model_channels
+    out.dense("time_embed.0", P["time_dense_0"])
+    out.dense("time_embed.2", P["time_dense_1"])
+    out.conv("input_blocks.0.0", P["conv_in"])
+    ds, ch, idx = 1, mc, 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            out.resblock(f"input_blocks.{idx}.0", P[f"in_{idx}_res"])
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                out.attention(f"input_blocks.{idx}.1", P[f"in_{idx}_attn"], ch, ch // cfg.num_head_channels, False)
+            idx += 1
+        if level != len(cfg.channel_mult) - 1:
+            if cfg.resblock_updown:
+                out.resblock(f"input_blocks.{idx}.0", P[f"in_{idx}_down"])
+            else:
+                out.conv(f"input_blocks.{idx}.0.op", P[f"in_{idx}_down"]["op"])
+            idx += 1
+            ds *= 2
+
+    out.resblock("middle_block.0", P["mid_res_0"])
+    out.attention("middle_block.1", P["mid_attn"], ch, ch // cfg.num_head_channels, False)
+    out.resblock("middle_block.2", P["mid_res_1"])
+    out.put("out.0.weight", P["out_norm_scale"])
+    out.put("out.0.bias", P["out_norm_bias"])
+    if "pool" in P:
+        pool = P["pool"]
+        out.put("out.2.positional_embedding", np.asarray(pool["positional_embedding"]).T)
+        out.put("out.2.qkv_proj.weight", np.asarray(pool["qkv"]["kernel"]).T[:, :, None])
+        out.put("out.2.qkv_proj.bias", pool["qkv"]["bias"])
+        out.put("out.2.c_proj.weight", np.asarray(pool["proj"]["kernel"]).T[:, :, None])
+        out.put("out.2.c_proj.bias", pool["proj"]["bias"])
+    else:
+        out.conv1x1("out.3", P["head"])
     return out.sd
 
 

@@ -4,8 +4,10 @@ JAX counterpart: ``diffusion_uncertainty_tpu/sampling.py``
 (``GenerationResult``, ``generate_uncertainty_dataset``, :56-177). The same
 contract: the starting points are cut into batches of ``batch_size`` (the
 last one padded to that size by repeating its last entry, so every batch
-has one shape), each batch is sampled with ``sample_ddim`` and its own noise
-source, and, given a run directory, written as shards ``gen_images_<i>``,
+has one shape), each batch is sampled with ``sample_ddim`` (``sampler="ddim"``)
+or ``sample_dpm_solver`` (``sampler="dpm"``: DPM-Solver++ of order 2, its
+steps and window from ``sampler_cfg``) and its own noise source, and, given
+a run directory, written as shards ``gen_images_<i>``,
 ``uncertainty_<i>`` and ``score_<i>`` (``utils.experiments``), plus
 ``timestep.npz`` with the first batch. A shard whose ``gen_images`` file
 exists is skipped, so a cut run resumes where it stopped.
@@ -17,8 +19,8 @@ is the model the estimator calls (the dropout forward of ``mc_dropout``); the
 trajectory forward is ``apply_fn`` and stays deterministic. A latent
 model's ``decode_fn`` (U-ViT's VAE decoder) maps each batch's final sample
 to images before the uint8 conversion; its uncertainty maps and scores stay
-in latent space. Not ported: the device mesh (ROADMAP.md queue 1 item 18),
-the DPM-Solver sampler (item 11) and the FID hook.
+in latent space. Not ported: the device mesh (ROADMAP.md queue 1 item 18)
+and the FID hook.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .diffusion.dpm_solver import DPMSolverConfig, sample_dpm_solver
 from .diffusion.sampler import SamplerConfig, sample_ddim, to_uint8
 from .diffusion.schedule import NoiseSchedule
 from .utils.experiments import save_shard
@@ -68,7 +71,7 @@ def generate_uncertainty_dataset(
     shard_offset: int = 0,
     keep_in_memory: bool = True,
     collect_eps: bool = True,
-    sampler: str = "ddim",
+    sampler: str = "ddim",  # ddim | dpm (DPM-Solver++ order 2)
     estimator_apply_fn: Optional[ApplyFn] = None,
     noise_factory: Callable = TorchNoise,
     decode_fn: Optional[Callable] = None,  # latent models: latents -> images before uint8
@@ -76,8 +79,15 @@ def generate_uncertainty_dataset(
     """Sample every starting point of ``X_T`` on the schedule's device.
     ``noise_factory(seed, device)`` makes each batch's noise source (a test
     may pass one that replays recorded draws)."""
-    if sampler != "ddim":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet: ROADMAP.md queue 1 item 11")
+    if sampler == "dpm":
+        dpm_cfg = DPMSolverConfig(
+            num_inference_steps=sampler_cfg.num_inference_steps,
+            num_train_timesteps=sampler_cfg.num_train_timesteps,
+            after_step=sampler_cfg.after_step,
+            num_steps_uc=sampler_cfg.num_steps_uc,
+        )
+    elif sampler != "ddim":
+        raise ValueError(f"unknown sampler {sampler!r}: ddim | dpm")
     dev = schedule.device
     n = X_T.shape[0]
     num_batches = (n + batch_size - 1) // batch_size
@@ -100,10 +110,13 @@ def generate_uncertainty_dataset(
         est_fn = None
         if estimator_apply_fn is not None:
             est_fn = lambda x, t, noise: estimator_apply_fn(x, t, y_dev, noise)  # noqa: E731
-        res = sample_ddim(
-            model_fn, schedule, torch.from_numpy(xb).to(dev), noise_factory(batch_seed(seed, b), dev), sampler_cfg,
-            estimator=estimator, guidance=guidance, estimator_model_fn=est_fn,
-        )
+        x_T, noise = torch.from_numpy(xb).to(dev), noise_factory(batch_seed(seed, b), dev)
+        if sampler == "dpm":
+            res = sample_dpm_solver(model_fn, schedule, x_T, noise, dpm_cfg, estimator=estimator, guidance=guidance,
+                                    estimator_model_fn=est_fn)
+        else:
+            res = sample_ddim(model_fn, schedule, x_T, noise, sampler_cfg, estimator=estimator, guidance=guidance,
+                              estimator_model_fn=est_fn)
         sample = res.sample if decode_fn is None else decode_fn(res.sample)
         imgs = to_uint8(sample).cpu().numpy()[: hi - lo]
         u = res.uncertainty.transpose(0, 1).cpu().numpy()[: hi - lo] if res.uncertainty is not None else None

@@ -102,9 +102,9 @@ def calls(kpool, kilv, kind: str, form: str, ts: list):
             (lambda: (copy(), interp())))
 
 
-def inputs(kind: str, form: str, shape, gen) -> list:
+def inputs(kind: str, form: str, shape, gen, dtype=torch.bfloat16) -> list:
     count = {"single": 1, "pair": 2 if kind == "pool" else 5, "phase": 4, "nearest": 1}[form]
-    return [torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(count)]
+    return [torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(count)]
 
 
 def route_of(mod, fn) -> str:
@@ -118,10 +118,11 @@ def route_of(mod, fn) -> str:
     return "+".join(f"{k}" for k, v in counts.items() if v > before.get(k, 0)) or "-"
 
 
-def measure(kpool, kilv, kind: str, form: str, shape, gen, clocks=None) -> dict:
-    """One form at one site: its times, bound and route (module docstring)."""
+def measure(kpool, kilv, kind: str, form: str, shape, gen, clocks=None, dtype=torch.bfloat16) -> dict:
+    """One form at one site in ``dtype``: its times, bound and route (module
+    docstring)."""
     device_ms, graph_ms, host_us = clocks or _clocks()
-    ts = inputs(kind, form, shape, gen)
+    ts = inputs(kind, form, shape, gen, dtype)
     fn, plain, lib = calls(kpool, kilv, kind, form, ts)
     nbytes = ts[0].numel() * ts[0].element_size()
     return {"kernel": "avg_pool_2x2" if kind == "pool" else "interleave_2x", "form": form, "shape": list(shape),

@@ -19,15 +19,22 @@ and builds the model with its Winograd conv route on. Runs: ``cifar10``,
 ``imagenet64``, ``imagenet128``, ``tiny`` and the U-ViT latent datasets
 ``imagenet256`` and ``imagenet512`` (sampled in latent space and decoded to
 images by the bundle's VAE) with ``uncertainty_centered``,
-``uncertainty_zigzag_centered`` and ``mc_dropout``:
+``uncertainty_zigzag_centered``, ``mc_dropout`` and
+``dpm_2_uncertainty_centered`` (the centered estimator on the DPM-Solver++
+sampler), and ADM classifier guidance (``--classifier-scale`` > 0: the
+trajectory forward guided by the dataset's noisy classifier,
+``factory.load_classifier``; the window's ensemble runs the unguided model):
 
     python -m diffusion_uncertainty_torch.scripts.generate_starting_points --datasets imagenet256
     python -m diffusion_uncertainty_torch.scripts.generate_dataset_score_uncertainty --dataset imagenet256 \\
         --scheduler-type uncertainty_zigzag_centered --random-init true --num-samples 8 --batch-size 8 \\
         --M 5 --num-zigzag 3 --generation-steps 50 --start-step-uc 40 --num-steps-uc 10
+    python -m diffusion_uncertainty_torch.scripts.generate_dataset_score_uncertainty --dataset imagenet128 \
+        --classifier-scale 1.0 --scheduler-type uncertainty_zigzag_centered --random-init true --num-samples 8 \
+        --batch-size 8 --M 5 --num-zigzag 3 --generation-steps 50 --start-step-uc 40 --num-steps-uc 10
 
 Not ported yet (each raises naming its ROADMAP.md queue 1 item): the other
-scheduler types, classifier guidance and the device mesh.
+scheduler types and the device mesh.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ import torch
 
 from ..diffusion.ddim import DiffusionConfig
 from ..diffusion.sampler import SamplerConfig
-from ..factory import instantiate_model_scheduler
+from ..classifier_guidance import with_classifier_guidance
+from ..factory import instantiate_model_scheduler, load_classifier
 from ..sampling import generate_uncertainty_dataset
 from ..uncertainty import ESTIMATORS, EstimatorConfig, make_estimator
 from ..utils import paths
@@ -90,7 +98,6 @@ class Config:
 
 # scheduler types of the JAX CLI that the port does not run yet
 _NOT_PORTED = {
-    "dpm_2_uncertainty_centered": "item 11 (the DPM-Solver sampler)",
     "uncertainty_grad": "item 23 (the remaining guidance makers)",
 }
 
@@ -128,8 +135,6 @@ def _check_ported(cfg: Config) -> None:
         raise SystemExit(f"scheduler type {cfg.scheduler_type!r} is not ported yet: ROADMAP.md queue 1, {_NOT_PORTED[cfg.scheduler_type]}")
     if cfg.scheduler_type not in ESTIMATORS:
         raise SystemExit(f"scheduler type {cfg.scheduler_type!r} is not ported yet: ROADMAP.md queue 1, item 9 (estimators)")
-    if cfg.classifier_scale > 0:
-        raise SystemExit("classifier guidance is not ported yet: ROADMAP.md queue 1, item 10 (ADMClassifier)")
     if cfg.mesh_data > 1:
         raise SystemExit("the device mesh is not ported yet: ROADMAP.md queue 1, item 18 (parallelism)")
 
@@ -171,6 +176,11 @@ def main(argv=None) -> Path:
         )
     )
     apply_fn, estimator_apply_fn = select_apply_fn(bundle, cfg.scheduler_type)
+    if cfg.classifier_scale > 0:
+        classifier = load_classifier(cfg.dataset, random_init=cfg.random_init, device=cfg.device)
+        if estimator_apply_fn is None:
+            estimator_apply_fn = apply_fn  # only the trajectory forward is guided
+        apply_fn = with_classifier_guidance(apply_fn, classifier, bundle.schedule, cfg.classifier_scale)
 
     run_dir = Path(cfg.run_dir) if cfg.run_dir else new_run_dir()
     if not (run_dir / "args.yaml").exists():
@@ -192,6 +202,7 @@ def main(argv=None) -> Path:
         shard_offset=cfg.worker_index * 100000,  # disjoint shard ids per worker
         keep_in_memory=False,
         decode_fn=bundle.decode_fn,
+        sampler="dpm" if cfg.scheduler_type == "dpm_2_uncertainty_centered" else "ddim",
     )
     if bundle.schedule.device.type == "cuda":
         torch.cuda.synchronize()

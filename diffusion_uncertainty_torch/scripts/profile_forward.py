@@ -4,6 +4,7 @@
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model cifar10 --batch 128 --winograd 1
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model vae --batch 1
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model uvit256 --batch 8
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model adm128_classifier --batch 8
     PYTHONPATH=<another checkout> python <this file> --model vae --batch 1
 
 No JAX counterpart (the JAX package's profiles are TPU traces). Builds the
@@ -16,7 +17,10 @@ cuDNN with ``--winograd 0``; ``vae``: the SD KL-VAE decoder in float32, as
 the text-to-image CLI runs it, one decode of a 64x64 latent to a 512x512
 image; ``uvit256`` / ``uvit512``: U-ViT-huge/2 on 32x32x4 latents / U-ViT-huge/4
 on 64x64x4 latents from ``factory.instantiate_model_scheduler(random_init=True)``,
-bf16, t=500), times ``ITERS`` forwards on the host
+bf16, t=500; ``adm128_classifier``: the ImageNet-128 noisy classifier from
+``factory.load_classifier(random_init=True)`` in float32, t=500, one
+"forward" being the classifier-guidance term, a forward and the backward to
+its input), times ``ITERS`` forwards on the host
 clock (ending in a synchronize), then traces ``TRACE`` more with
 ``torch.profiler`` and prints the device time
 per forward by kernel family and the largest kernels, the device's busy
@@ -37,7 +41,7 @@ from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, Autoencod
 from diffusion_uncertainty_torch.pipelines import pseudo_text_embeddings
 from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config, _build, build_sd_stack, init_random_
 
-MODELS = "sd15 | adm128 | cifar10 | vae | uvit256 | uvit512"
+MODELS = "sd15 | adm128 | cifar10 | vae | uvit256 | uvit512 | adm128_classifier"
 ITERS = 10  # forwards timed on the host clock
 TRACE = 3  # forwards traced by torch.profiler
 # kernel-name substrings -> family, first match wins
@@ -97,6 +101,16 @@ def build(model: str, batch: int, device, winograd: bool = False):
         x = torch.randn(batch, *bundle.sample_shape, generator=gen, device=device)
         y = torch.randint(0, bundle.num_classes, (batch,), generator=gen, device=device)
         return (lambda: bundle.model(x, 500, y)), sum(p.numel() for p in bundle.model.parameters())
+    if model == "adm128_classifier":
+        from diffusion_uncertainty_torch.classifier_guidance import with_classifier_guidance
+        from diffusion_uncertainty_torch.diffusion import make_schedule
+        from diffusion_uncertainty_torch.factory import load_classifier
+
+        clf = load_classifier("imagenet128", random_init=True, device=device)
+        x = torch.randn(batch, 128, 128, 3, generator=gen, device=device)
+        y = torch.randint(0, clf.cfg.out_channels, (batch,), generator=gen, device=device)
+        term = with_classifier_guidance(lambda *a: torch.zeros_like(x), clf, make_schedule("linear", 1000, device=device), 1.0)
+        return (lambda: term(x, 500, y, None)), sum(p.numel() for p in clf.parameters())
     raise SystemExit(f"unknown model {model!r}: {MODELS}")
 
 

@@ -169,18 +169,20 @@ def jax_sampler_noise(key, shape, num_inference_steps, after_step, num_steps_uc,
     return draws
 
 
-def jax_guidance_noise(key, shape, num_inference_steps, after_step, num_steps_uc, M, latents_shape=None):
+def jax_guidance_noise(key, shape, num_inference_steps, after_step, num_steps_uc, M, latents_shape=None, start_step=0):
     """The standard-normal draws of the JAX ``sample_ddim`` (eta 0) with a
-    percentile guidance: one [M, *shape] draw per window step
-    (``sampler.py:158``, ``estimators.py:104-108``). With ``latents_shape``
-    the key is the text-to-image pipeline's, whose first draw is the initial
-    latents (``text_to_image.py:123-127``)."""
+    percentile guidance or ``uncertainty_centered``: one [M, *shape] draw per
+    window step (``sampler.py:158``, ``estimators.py:104-108``); the JAX
+    ``sample_dpm_solver`` walks its key the same way (``dpm_solver.py:239-255``).
+    With ``latents_shape`` the key is the text-to-image pipeline's, whose
+    first draw is the initial latents (``text_to_image.py:123-127``); the
+    chain starts at step ``start_step``."""
     draws = []
     if latents_shape is not None:
         k_init, key = jax.random.split(key)
         draws.append(np.asarray(jax.random.normal(k_init, latents_shape, jnp.float32)))
     w0, w1 = uncertainty_window(after_step, num_steps_uc, num_inference_steps)
-    for i in range(num_inference_steps):
+    for i in range(start_step, num_inference_steps):
         if w0 <= i < w1:
             key, _, k_est = jax.random.split(key, 3)
             k_noise, _ = jax.random.split(k_est)
