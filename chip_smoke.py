@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and hold its kernels to account.
 
-    python3 chip_smoke.py [--details PATH]   # one card, about six minutes
+    python3 chip_smoke.py [--details PATH]   # one card, about eight minutes
 
 Phases (a failure in any of them ends the run with a non-zero exit):
 
@@ -180,11 +180,31 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    ``dpm_2_uncertainty_centered`` (DPM-Solver++ order 2, 50 steps, centered
    M=5 on [40, 50)): 100 ADM forwards in 60 calls, attention on the
    tensor-core route only, maps [8, 10, 128, 128, 3] finite; images/s.
+12. The remaining estimators and guidances on ADM-128 (bf16, batch 8,
+   seeded random weights, no ``--device``). (a) The dataset CLI once for
+   each of ``uncertainty`` (activation noise at in_8, out_1, out_4,
+   out_12) and ``uncertainty_grad`` (the gradient guidance: a forward and a
+   backward to ε at the folded batch 40 each window step), both 50 DDIM
+   steps with the window [40, 50) and M=5, and ``infer_noise``,
+   ``uncertainty_image``, ``uncertainty_centered_d`` and ``flip``, 10 steps
+   with the window [8, 10): maps finite with positive mean, the ADM calls
+   and forwards each type makes, 16 tensor-core attention launches an ADM
+   call, every GroupNorm on the one-launch route, and for
+   ``uncertainty_grad`` one backward through each op wrapper (GroupNorm,
+   attention, the avg-pool and interleave pairs) for each launch of its
+   forward; images/s and peak memory. (b) One window step's gradient of
+   ``uncertainty_grad`` (t=180, M=5, one fixed ensemble draw) with the
+   kernels against the same step with every kernel replaced by its plain
+   version: dε and u within rel L2 5e-2; seconds and peak memory of both.
+   (c) ``generate_guided`` on imagenet128 with ``--guidance posterior``
+   (50 steps, window [40, 50), FID on: the extractor that ran is printed),
+   ``gradient``, ``second_order`` and ``mask`` (10 steps, window [8, 10)):
+   a record appended each, the guided images differ from the plain ones.
 
 Every forward of phases 3, 5, 7, 9a, 10 and 11a must launch each kernel of its
 model; each main path (phase 4, each run of phase 6, each run of phase 8, the
-AUSE, NLL and dataset-CLI runs of phase 9, phase 10b, and phases 11b and 11c)
-sets the launch
+AUSE, NLL and dataset-CLI runs of phase 9, phase 10b, phases 11b and 11c,
+and each run of phase 12) sets the launch
 counters to 0 just before and reads them just after, and fails if a kernel of
 its path never launched. Each phase prints its seconds. The last two lines are the kernels
 JSON (``launches``: the sum over the main-path runs; avg_pool_2x2 and
@@ -1673,13 +1693,227 @@ def main() -> None:
     details.update(guided_runs=guided_runs)
     lap(11)
 
+    # ---- phase 12: the remaining estimators and guidances on ADM-128 ---------
+    import diffusion_uncertainty_torch.ops.attention as op_att
+    import diffusion_uncertainty_torch.ops.avgpool as op_pool
+    import diffusion_uncertainty_torch.ops.fused_upsample as op_up
+    import diffusion_uncertainty_torch.ops.groupnorm as op_gn
+    from diffusion_uncertainty_torch.diffusion import DiffusionConfig, StepState, ddim_step
+    from diffusion_uncertainty_torch.diffusion.sampler import _recompute_prev
+    from diffusion_uncertainty_torch.scripts import generate_guided
+    from diffusion_uncertainty_torch.uncertainty import guidance as guid_mod
+
+    # the ops' autograd backwards of the ADM path, counted as they run
+    bwd_ops = {"group_norm": op_gn._GroupNorm, "attention": op_att._Attention, "avg_pool_2x2": op_pool._AvgPoolPair,
+               "interleave_2x": op_up._InterleaveUpsample}
+    bwd_calls = dict.fromkeys(bwd_ops, 0)
+    saved_bwd = {k: cls.backward for k, cls in bwd_ops.items()}
+
+    def counted_backward(name):
+        def backward(ctx, *grads):
+            bwd_calls[name] += 1
+            return saved_bwd[name](ctx, *grads)
+
+        return staticmethod(backward)
+
+    gg_saved = generate_guided.instantiate_model_scheduler, generate_guided.generate_uncertainty_dataset
+    gg_build = generate_guided.build_guidance
+    gg_images, extractors, gg_moves = [], [], []
+    saved_ext = compute_fid.make_extractor
+
+    def gg_generation(*a, **kw):
+        out = gg_saved[1](*a, **kw)
+        gg_images.append(out.gen_images)
+        return out
+
+    def moved_guidance(cfg):
+        """The CLI's guidance, noting for each window step how far the guided
+        x_{t-1} lies from the plain DDIM x_{t-1} of the same x_t (float32 rel
+        L2), beside the rounding floor: x_{t-1} re-derived from the unguided
+        epsilon by the guidance's own formula."""
+        g = gg_build(cfg)
+
+        def apply(model_fn, schedule, state, noise, aux):
+            x_next, u, aux = g.apply(model_fn, schedule, state, noise, aux)
+            plain = state.prev_sample.float()
+            floor = rel_l2(_recompute_prev(schedule, state, state.pred_epsilon.float(), DiffusionConfig(eta=cfg.eta)), plain)
+            gg_moves.append((rel_l2(x_next, plain), floor))
+            return x_next, u, aux
+
+        return guid_mod.Guidance(g.init, apply)
+
+    def recorded_extractor(cfg):
+        ext = saved_ext(cfg)
+        extractors.append(f"{type(ext).__name__} (dim {ext.dim})")
+        return ext
+
+    def counted(tag, fn):
+        """fn() between zeroed and read counters: (its value, the run's record)."""
+        calls.update(adm=[0, 0], guided=0, attention_bwd=0)
+        bwd_calls.update(dict.fromkeys(bwd_calls, 0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        r = {"s": time.perf_counter() - t0, "launches": kernels.launch_counts(), "routes": kernels.route_counts(),
+             "gn_routes": kernels.gn_route_counts(), "adm_calls": calls["adm"][0], "adm_forwards": calls["adm"][1],
+             "backwards": dict(bwd_calls), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        check_counts(r["launches"], ADM_PATH, tag)
+        check_tc_routes(r["routes"], tag)
+        check_gn_one_launch(r["gn_routes"], tag)
+        if r["routes"]["tensor_core"] != adm_per_forward * r["adm_calls"]:
+            fail(f"{tag}: {r['routes']['tensor_core']} tensor-core attention launches, want {adm_per_forward} a call of "
+                 f"ADM-128 ({r['adm_calls']} calls)")
+        print(f"[{tag}] kernels {json.dumps(r['launches'])}; {r['adm_calls']} ADM calls ({r['adm_forwards']} forwards of "
+              f"batch {CLF_BATCH}); op backwards {json.dumps(r['backwards'])}; peak memory {r['peak_mem_gib']:.2f} GiB",
+              flush=True)
+        return out, r
+
+    def check_backwards(r, grad_calls, tag):
+        """Each gradient ADM call takes one backward through every op wrapper
+        its forward used (phase 3's launches a forward)."""
+        want = {k: adm_fwd_counts[k] * grad_calls for k in bwd_ops}
+        if r["backwards"] != want:
+            fail(f"{tag}: op backwards {r['backwards']}, want {want} ({grad_calls} gradient calls)")
+
+    # scheduler type: (extra flags, window steps, ADM calls, forwards of the batch, gradient calls)
+    short = ["--generation-steps", "10", "--start-step-uc", "8", "--num-steps-uc", "2"]
+    protocol = ["--generation-steps", "50", "--start-step-uc", "40", "--num-steps-uc", "10"]
+    runs12 = {
+        "uncertainty": (protocol, 10, 60, 100, 0),
+        "uncertainty_grad": (protocol, 10, 60, 100, 10),
+        "infer_noise": (short, 2, 12, 20, 0),
+        "uncertainty_image": (short, 2, 12, 20, 0),
+        "uncertainty_centered_d": (short, 2, 12, 20, 0),
+        "flip": (short, 2, 12, 12, 0),
+    }
+    phase12: dict = {}
+    dataset_cli.instantiate_model_scheduler, ops_attention.attention_bwd = counted_bundle, counted_bwd
+    dataset_cli.generate_uncertainty_dataset = timed_generation
+    generate_guided.instantiate_model_scheduler, generate_guided.generate_uncertainty_dataset = counted_bundle, gg_generation
+    generate_guided.build_guidance = moved_guidance
+    compute_fid.make_extractor = recorded_extractor
+    for name, cls in bwd_ops.items():
+        cls.backward = counted_backward(name)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = root
+            generate_starting_points.main(["--datasets", "imagenet128", "--num-samples", str(CLF_BATCH), "--extra-samples", "0"])
+            base = ["--dataset", "imagenet128", "--random-init", "true", "--M", "5", "--batch-size", str(CLF_BATCH),
+                    "--num-samples", str(CLF_BATCH)]
+            # 12a: every newly ported scheduler type through the dataset CLI
+            for st, (flags, n_win, n_calls, n_fwd, n_grad) in runs12.items():
+                run_dir = ["--run-dir", os.path.join(root, "runs12", st)]  # runs within one second share a timestamp
+                run, r = counted(f"12a {st}", lambda: dataset_cli.main(base + flags + run_dir + ["--scheduler-type", st]))
+                u, imgs = load_run_arrays(run, "uncertainty"), load_run_arrays(run, "gen_images")
+                r.update(generation_s=gen_s[0], images_per_s=len(imgs) / gen_s[0], uncertainty_shape=list(u.shape),
+                         uncertainty_mean=float(u.mean()))
+                if not (imgs.shape == (CLF_BATCH, 128, 128, 3) and u.shape == (CLF_BATCH, n_win, 128, 128, 3)
+                        and bool(np.isfinite(u).all()) and u.mean() > 0):
+                    fail(f"12a {st}: images {imgs.shape}, maps {u.shape}, finite {bool(np.isfinite(u).all())}, mean {u.mean()}")
+                if (r["adm_calls"], r["adm_forwards"]) != (n_calls, n_fwd):
+                    fail(f"12a {st}: {r['adm_forwards']} ADM forwards in {r['adm_calls']} calls, want {n_fwd} in {n_calls}")
+                check_backwards(r, n_grad, f"12a {st}")
+                print(f"[12a] {st} (ADM-128, bf16, batch {CLF_BATCH}, M=5, {n_calls - n_win} DDIM steps, window of "
+                      f"{n_win}, dataset CLI): {r['generation_s']:.2f} s sampling, {r['images_per_s']:.4f} images/s on "
+                      f"{card} ({r['s']:.2f} s with the set-up); maps {r['uncertainty_shape']}, mean "
+                      f"{r['uncertainty_mean']:.4e}; peak memory {r['peak_mem_gib']:.2f} GiB", flush=True)
+                phase12[st] = r
+
+            # 12b: one window step's gradient of uncertainty_grad, kernels against plain versions
+            bundle = counted_bundle("imagenet128", random_init=True)
+            g12 = torch.Generator(device=dev).manual_seed(SEED + 12)
+            x12 = torch.randn(CLF_BATCH, 128, 128, 3, generator=g12, device=dev)
+            y12 = torch.randint(0, 1000, (CLF_BATCH,), generator=g12, device=dev)
+            n12 = torch.randn(5, CLF_BATCH, 128, 128, 3, generator=g12, device=dev)
+
+            class Fixed:  # the same ensemble draw for both runs
+                def normal(self, shape, dtype, device):
+                    assert tuple(shape) == tuple(n12.shape)
+                    return n12
+
+            fn12 = lambda x, t, nz: bundle.apply_fn(x, t, y12, nz)  # noqa: E731
+            with torch.no_grad():
+                step = ddim_step(bundle.schedule, x12, fn12(x12, 180, None), 180, 160, DiffusionConfig())
+            state12 = StepState(x12, step.pred_original_sample, step.pred_epsilon, step.prev_sample, 180, 160)
+            grad_k, r = counted("12b kernels", lambda: guid_mod._eps_gradient(fn12, bundle.schedule, state12, Fixed(), 5, 0))
+            check_backwards(r, 1, "12b kernels")
+            with PlainKernels(wrapper_mods, plains):
+                kernels.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                grad_p = guid_mod._eps_gradient(fn12, bundle.schedule, state12, Fixed(), 5, 0)
+                torch.cuda.synchronize()
+                plain_s, plain_mem = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+            if any(kernels.launch_counts().values()):
+                fail("12b: the plain-version run launched a kernel")
+            rel = {"grad": rel_l2(grad_k[0], grad_p[0]), "u": rel_l2(grad_k[1], grad_p[1])}
+            ok = all(bool(torch.isfinite(t).all()) for t in (*grad_k, *grad_p)) and float(grad_k[0].abs().max()) > 0
+            print(f"[12b] uncertainty_grad, one window step (t=180, M=5 folded to batch {5 * CLF_BATCH}, bf16): gradient "
+                  f"{r['s']:.2f} s with the kernels, {plain_s:.2f} s with the plain versions on {card}; peak memory "
+                  f"{r['peak_mem_gib']:.2f} / {plain_mem:.2f} GiB; kernels against plain versions: dε rel L2 "
+                  f"{rel['grad']:.3e}, u rel L2 {rel['u']:.3e} (limit 5e-2)", flush=True)
+            if not (ok and rel["grad"] <= 5e-2 and rel["u"] <= 5e-2):
+                fail(f"12b: gradient against the plain versions {rel}, finite and non-zero {ok}")
+            phase12["grad_check"] = {**r, **rel, "plain_s": plain_s, "plain_peak_mem_gib": plain_mem}
+            del bundle, grad_k, grad_p, state12, step
+
+            # 12c: the guided-generation A/B CLI; (flags, window steps, gradient calls)
+            for g, (flags, n_win, n_grad) in {"posterior": (protocol + ["--compute-fid", "true"], 10, 0),
+                                              "gradient": (short + ["--compute-fid", "false"], 2, 2),
+                                              "second_order": (short + ["--compute-fid", "false"], 2, 0),
+                                              "mask": (short + ["--compute-fid", "false"], 2, 0)}.items():
+                gg_images.clear()
+                extractors.clear()
+                gg_moves.clear()
+                argv = ["--dataset", "imagenet128", "--guidance", g, "--random-init", "true", "--M", "5",
+                        "--batch-size", str(CLF_BATCH), "--num-samples", str(CLF_BATCH)] + flags
+                rec, r = counted(f"12c {g}", lambda: generate_guided.main(argv))
+                check_backwards(r, n_grad, f"12c {g}")
+                records = json.loads((paths.results() / "uncertainty_guidance" / "results.json").read_text())
+                moved = float(np.abs(gg_images[0].astype(np.int16) - gg_images[1].astype(np.int16)).mean())
+                # beyond rounding: above 10x the largest floor of the window (0 where the guidance's formula
+                # reproduces the plain step bitwise); the last step moves only the unclipped pixels of x0
+                step_moves = [m for m, _ in gg_moves]
+                limit = max([0.0] + [10 * f for _, f in gg_moves])
+                r.update(record=rec, extractor=extractors[:1], guided_vs_plain_mean_abs_uint8=moved,
+                         x_prev_moves=step_moves, x_prev_rounding_floors=[f for _, f in gg_moves])
+                print(f"[12c] generate_guided --guidance {g} ({flags[1]} steps, window of {flags[5]}, M=5, batch "
+                      f"{CLF_BATCH}): {r['s']:.2f} s for both runs on {card}; record {json.dumps(rec)}; extractor "
+                      f"{extractors or 'none'}; guided against plain x_(t-1), rel L2 a window step "
+                      f"{['%.3e' % m for m in step_moves]} (rounding floor {['%.1e' % f for _, f in gg_moves]}, "
+                      f"limit above {limit:.1e}); final images: mean |diff| {moved:.4f} uint8", flush=True)
+                if not (len(gg_images) == 2 and len(gg_moves) == n_win and max(step_moves) > limit
+                        and records[-1]["guidance"] == g):
+                    fail(f"12c {g}: {len(gg_images)} runs, x_(t-1) moved {step_moves} in {len(gg_moves)} window steps "
+                         f"(want {n_win}, the largest above {limit:.1e}), last record {records[-1]}")
+                if g == "posterior" and not (extractors and math.isfinite(rec["fid_guided_vs_plain"])):
+                    fail(f"12c posterior: FID {rec.get('fid_guided_vs_plain')}, extractor {extractors}")
+                phase12[f"guided_{g}"] = r
+    finally:
+        dataset_cli.instantiate_model_scheduler, ops_attention.attention_bwd = saved[0], saved[2]
+        dataset_cli.generate_uncertainty_dataset = saved_gen
+        generate_guided.instantiate_model_scheduler, generate_guided.generate_uncertainty_dataset = gg_saved
+        generate_guided.build_guidance = gg_build
+        compute_fid.make_extractor = saved_ext
+        for name, cls in bwd_ops.items():
+            cls.backward = staticmethod(saved_bwd[name])
+        if saved_root is None:
+            os.environ.pop("DIFFUSION_UNCERTAINTY_ROOT", None)
+        else:
+            os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = saved_root
+    details.update(phase12=phase12)
+    lap(12)
+
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
             json.dump(details, f, indent=1, default=str)
 
     path_runs = (*sd_runs.values(), *cifar_runs.values(), *(r for r in metric_runs.values() if "launches" in r),
-                 uvit_runs["main path"], guided_runs["guided"], guided_runs["dpm"])
+                 uvit_runs["main path"], guided_runs["guided"], guided_runs["dpm"], *phase12.values())
     launches = {k: adm_launches[k] + sum(r["launches"][k] for r in path_runs) for k in names}
     entries = []
     for k, (src, replaces) in KERNELS.items():

@@ -68,13 +68,17 @@ class SampleResult(NamedTuple):
     intermediates: Optional[torch.Tensor] = None  # [steps, B, ...] per-step x_{t-1}
 
 
-def _recompute_prev(schedule: NoiseSchedule, state: StepState, new_eps: torch.Tensor, cfg: DiffusionConfig):
-    """x_{t-1} re-derived after a guidance transform replaced pred_epsilon."""
+def _recompute_prev(schedule: NoiseSchedule, state: StepState, new_eps: torch.Tensor, cfg: DiffusionConfig,
+                    x0: Optional[torch.Tensor] = None):
+    """x_{t-1} re-derived after a guidance transform replaced pred_epsilon.
+    A given ``x0`` is kept, and only the direction term takes ``new_eps``
+    (the scheduler-internal variants keep the original model output's x0)."""
     ab_t = schedule.alpha_bar(state.timestep)
     ab_prev = schedule.alpha_bar(state.prev_timestep)
-    x0 = (state.sample.float() - torch.sqrt(1.0 - ab_t) * new_eps) / torch.sqrt(ab_t)
-    if cfg.clip_sample:
-        x0 = x0.clamp(-cfg.clip_sample_range, cfg.clip_sample_range)
+    if x0 is None:
+        x0 = (state.sample.float() - torch.sqrt(1.0 - ab_t) * new_eps) / torch.sqrt(ab_t)
+        if cfg.clip_sample:
+            x0 = x0.clamp(-cfg.clip_sample_range, cfg.clip_sample_range)
     std_dev_t = cfg.eta * torch.sqrt((1.0 - ab_prev) / (1.0 - ab_t) * (1.0 - ab_t / ab_prev))
     direction = torch.sqrt(torch.clamp(1.0 - ab_prev - std_dev_t**2, min=0.0)) * new_eps
     return (torch.sqrt(ab_prev) * x0 + direction).to(state.sample.dtype)

@@ -85,9 +85,11 @@ class ModelBundle:
     num_classes: Optional[int]
     # conditioned forwards: (x, t, y, noise) -> epsilon [B, H, W, 3]; the
     # deterministic one ignores ``noise``, the dropout one draws its masks
-    # from it
+    # from it, the activation-noise one (ADM; the others' plain forward, as
+    # JAX) its site noise
     apply_fn: Callable
     apply_fn_dropout: Callable
+    apply_fn_act_noise: Callable
     sample_shape: tuple  # (H, W, C) the sampler operates on
     # latent models: final latents [B, h, w, C] -> images [B, H, W, 3] float32
     decode_fn: Optional[Callable] = None
@@ -157,6 +159,9 @@ def instantiate_model_scheduler(
     def apply_fn_dropout(x, t, y, noise):
         return model(x, t, y if num_classes else None, noise=noise)[..., :3]
 
+    def apply_fn_act_noise(x, t, y, noise):
+        return model(x, t, y if num_classes else None, act_noise=noise)[..., :3]
+
     size = DATASET_IMAGE_SIZE[dataset]
     return ModelBundle(
         name=dataset,
@@ -166,6 +171,8 @@ def instantiate_model_scheduler(
         num_classes=num_classes,
         apply_fn=apply_fn,
         apply_fn_dropout=apply_fn_dropout,
+        # the CIFAR-10 UNet has no activation-noise sites (JAX ``UNet2D``)
+        apply_fn_act_noise=apply_fn_act_noise if model_cls is ADMUNet else apply_fn,
         sample_shape=(size, size, 3),
     )
 
@@ -199,8 +206,9 @@ def init_normal_(module: torch.nn.Module, gen: torch.Generator, std: float = 0.0
 def _instantiate_uvit(dataset, dtype, checkpoint, random_init, models_dir, dev) -> ModelBundle:
     """Latent U-ViT-huge and the KL-VAE decoder, both in ``dtype`` (JAX
     ``_instantiate_uvit``; the reference ``UViTAE``). The forwards are the
-    plain U-ViT (4 latent channels, no dropout at inference, so the dropout
-    forward is the same function); ``decode_fn`` maps final latents to
+    plain U-ViT (4 latent channels, no dropout at inference and no
+    activation-noise sites, so the dropout and activation-noise forwards are
+    the same function, as JAX); ``decode_fn`` maps final latents to
     images."""
     size = DATASET_IMAGE_SIZE[dataset]
     cfg = UViTConfig.imagenet256() if size == 256 else UViTConfig.imagenet512()
@@ -229,6 +237,7 @@ def _instantiate_uvit(dataset, dtype, checkpoint, random_init, models_dir, dev) 
         num_classes=cfg.num_classes,
         apply_fn=apply_fn,
         apply_fn_dropout=apply_fn,
+        apply_fn_act_noise=apply_fn,
         sample_shape=(cfg.img_size, cfg.img_size, cfg.in_chans),
         decode_fn=ae.decode,
     )

@@ -30,8 +30,20 @@ reference's ``EncoderUNetModel``: the UNet encoder (``ResBlock`` with
 the reference's state-dict keys (``convert.adm_classifier_state_dict_from_flax``
 gives the same dict from the JAX parameters).
 
-Not ported yet: the activation-noise and gradient taps (used by the
-``uncertainty`` and ``flip_grad`` estimators).
+Activation noise (the original ``uncertainty`` estimator): a forward given
+``act_noise=`` adds N(0, ``activation_noise_std``²) at the output of the
+plain ResBlock of each input or output block named in
+``activation_noise_blocks`` (``in_k`` is ``input_blocks[k]``, ``out_k`` is
+``output_blocks[k]``, as JAX's block index), before the block's attention;
+no down, up or middle block is a site. Each site draws one float32
+standard-normal tensor of the activation's full (folded) shape, in block
+order, casts it to the activation's type and scales it, as JAX's
+``_maybe_noise``. Gradient taps (``flip_grad``): a forward given a dict
+``taps=`` adds a zero tensor that requires a gradient at the same place in
+every such block, ``taps[tag]``, made on first use with the activation's
+shape and type, so ``torch.autograd.grad`` reaches ∂loss/∂(each ResBlock
+output) as JAX's ``perturb`` taps (``grad_taps=True``) do. Neither adds a
+parameter.
 """
 
 from __future__ import annotations
@@ -83,6 +95,10 @@ class ADMUNetConfig:
     use_new_attention_order: bool = False
     # route the ResBlock 3x3 convs through the Winograd kernel op
     winograd: bool = False
+    # blocks whose plain ResBlock output gets N(0, std²) in a forward given
+    # ``act_noise``; the defaults are the reference's four hook sites
+    activation_noise_blocks: Tuple[str, ...] = ("in_8", "out_1", "out_4", "out_12")
+    activation_noise_std: float = 0.01
 
     @staticmethod
     def imagenet128() -> "ADMUNetConfig":
@@ -127,6 +143,7 @@ class ADMUNetConfig:
             channel_mult=(1, 2),
             num_classes=num_classes,
             num_heads=2,
+            activation_noise_blocks=("in_1", "out_1"),
         )
 
 
@@ -235,8 +252,11 @@ class _Upsample(nn.Module):
 class ADMUNet(nn.Module):
     """Class-conditional epsilon(+learned variance) UNet.
 
-    ``forward(x [B,H,W,C], t (int | [B]), y [B'] | None, noise=None)`` ->
-    float32 [B, H, W, out_channels]; ``noise`` turns MC dropout on. When
+    ``forward(x [B,H,W,C], t (int | [B]), y [B'] | None, noise=None,
+    act_noise=None, taps=None)`` -> float32 [B, H, W, out_channels];
+    ``noise`` turns MC dropout on, ``act_noise`` the activation noise (see
+    the module note; the two are never given together), ``taps`` the
+    gradient taps. When
     ensemble members are folded into the batch (B = k·B'), the labels are
     tiled k times, member-major.
     """
@@ -294,16 +314,32 @@ class ADMUNet(nn.Module):
 
         self.out = nn.ModuleList([GroupNorm32(ch), nn.SiLU(), Conv3x3(ch, cfg.out_channels)])
 
-    def _block(self, layers, h, emb, skip=None, noise=None):
-        for layer in layers:
+    def _site(self, h, tag, act_noise, taps):
+        """The activation-noise site and gradient tap at a plain ResBlock's
+        output (JAX ``ADMUNet._maybe_noise``)."""
+        cfg = self.cfg
+        if act_noise is not None and tag in cfg.activation_noise_blocks:
+            draw = act_noise.normal(tuple(h.shape), torch.float32, h.device)
+            h = h + cfg.activation_noise_std * draw.to(h.dtype)
+        if taps is not None:
+            if tag not in taps:
+                taps[tag] = torch.zeros(h.shape, dtype=h.dtype, device=h.device, requires_grad=True)
+            h = h + taps[tag]
+        return h
+
+    def _block(self, layers, h, emb, skip=None, noise=None, tag=None, act_noise=None, taps=None):
+        for i, layer in enumerate(layers):
             if isinstance(layer, ResBlock):
                 h = layer(h, emb, skip, noise)
                 skip = None
+                if i == 0 and tag is not None and not (layer.up or layer.down):
+                    h = self._site(h, tag, act_noise, taps)
             else:
                 h = layer(h)
         return h
 
-    def forward(self, x: torch.Tensor, t, y: Optional[torch.Tensor] = None, noise=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t, y: Optional[torch.Tensor] = None, noise=None, act_noise=None,
+                taps: Optional[dict] = None) -> torch.Tensor:
         cfg = self.cfg
         dtype = self.time_embed[0].weight.dtype
         emb = timestep_embedding(t, cfg.model_channels, cos_first=True, device=x.device)
@@ -320,14 +356,15 @@ class ADMUNet(nn.Module):
         if emb.shape[0] == 1 and x.shape[0] > 1:
             emb = emb.expand(x.shape[0], -1)
 
+        sites = dict(act_noise=act_noise, taps=taps)
         h = self.input_blocks[0][0](x.to(dtype))
         hs = [h]
-        for layers in self.input_blocks[1:]:
-            h = self._block(layers, h, emb, noise=noise)
+        for k, layers in enumerate(self.input_blocks[1:], start=1):
+            h = self._block(layers, h, emb, noise=noise, tag=f"in_{k}", **sites)
             hs.append(h)
         h = self._block(self.middle_block, h, emb, noise=noise)
-        for layers in self.output_blocks:
-            h = self._block(layers, h, emb, skip=hs.pop(), noise=noise)
+        for k, layers in enumerate(self.output_blocks):
+            h = self._block(layers, h, emb, skip=hs.pop(), noise=noise, tag=f"out_{k}", **sites)
         gn = self.out[0]
         h = group_norm_silu(h, gn.weight, gn.bias)
         return self.out[2](h).float()

@@ -25,9 +25,9 @@ bf16 GELU does both in one pass; the JAX "auto" mode's tanh GELU in bf16 is
 a TPU-only deviation, ``PARITY.md``); the skip join as one GEMM over the
 concat of [x, skip]; unpatchify in the reference's (p1, p2, C) order;
 float32 output. ``remat`` (the JAX per-block rematerialisation) has no
-counterpart until a gradient-based estimator needs it (ROADMAP.md queue 1
-item 9); the run type is the parameters' (``model.to(dtype)``), not a
-config field.
+counterpart: a gradient estimator or guidance on U-ViT keeps every
+activation for its backward; the run type is the parameters'
+(``model.to(dtype)``), not a config field.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""The classifier-guided and the DPM-Solver++ ImageNet-128 paths alone in a
-process, on the card: images/s, where the time goes, and a digest of the
-output.
+"""The classifier-guided, DPM-Solver++, activation-noise and gradient-guided
+ImageNet-128 paths alone in a process, on the card: images/s, where the time
+goes, and a digest of the output.
 
     python -m diffusion_uncertainty_torch.scripts.bench_guided_path [--runs 3] [--json PATH]
     PYTHONPATH=<another checkout> python <this file> [--runs 3] [--json PATH]
@@ -12,14 +12,19 @@ and, for ``guided``, ``load_classifier`` (float32, seeded random) wrapped by
 ``with_classifier_guidance`` at scale 1.0 around the trajectory forward;
 ``generate_uncertainty_dataset`` at batch 8 with 50 steps and the window
 [40, 50): ``guided`` runs DDIM with zigzag-centered M=5 x3 (its ensemble on
-the unguided model), ``dpm`` DPM-Solver++ with the centered estimator, M=5.
+the unguided model), ``dpm`` DPM-Solver++ with the centered estimator, M=5,
+``uncertainty`` DDIM with the activation-noise estimator (M=5 on the
+bundle's ``apply_fn_act_noise``), ``uncertainty_grad`` DDIM with the
+gradient guidance (M=5: a forward and a backward at the folded batch 40 a
+window step), as ``chip_smoke.py`` phase 12a runs them.
 Starting points and labels come from a seeded numpy generator. One warm-up
 run each, then ``--runs`` runs timed on the host clock (each ending in a
 synchronize), then one run with a synchronize around every ADM call and
-every guidance term, which splits its time into ADM calls at batch 8, ADM
-calls at the folded batch 40, guidance terms and the rest (the sampler's and
-the estimator's own work and the host), and, apart from the runs, the time
-to write the run's shards (``save_shard``: images, maps, scores). The digest
+every guidance term or window step, which splits its time into ADM calls at
+batch 8, ADM calls at the folded batch 40, guidance terms, the gradient
+guidance's backwards (its window steps less their forwards) and the rest
+(the sampler's and the estimator's own work and the host), and, apart from
+the runs, the time to write the run's shards (``save_shard``: images, maps, scores). The digest
 (float64 sums of the uint8 images and the maps) shows whether two checkouts
 compute the same output. Run with another checkout first on the path, it
 runs that checkout's port.
@@ -53,7 +58,7 @@ def main(argv=None) -> None:
     from diffusion_uncertainty_torch.diffusion import SamplerConfig
     from diffusion_uncertainty_torch.factory import instantiate_model_scheduler, load_classifier
     from diffusion_uncertainty_torch.sampling import generate_uncertainty_dataset
-    from diffusion_uncertainty_torch.uncertainty import EstimatorConfig, make_estimator
+    from diffusion_uncertainty_torch.uncertainty import EstimatorConfig, Guidance, make_estimator, resolve_scheduler_transform
     from diffusion_uncertainty_torch.utils.experiments import save_shard
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,11 +88,17 @@ def main(argv=None) -> None:
     # a guided call is a trajectory ADM call at batch 8 and the guidance term
     guided = timed(with_classifier_guidance(adm, classifier, bundle.schedule, 1.0), "guided calls")
     scfg = SamplerConfig(num_inference_steps=50, after_step=40, num_steps_uc=10)
+    act_noise = timed(bundle.apply_fn_act_noise, lambda x: f"ADM calls at batch {x.shape[0]}")
+    grad_guidance = resolve_scheduler_transform(EstimatorConfig(name="uncertainty_grad", M=M))[1]
     protocols = {
         "guided": dict(apply_fn=guided, estimator_apply_fn=adm, sampler="ddim",
                        estimator=make_estimator(EstimatorConfig(name="uncertainty_zigzag_centered", M=M, num_zigzag=3))),
         "dpm": dict(apply_fn=adm, sampler="dpm",
                     estimator=make_estimator(EstimatorConfig(name="dpm_2_uncertainty_centered", M=M))),
+        "uncertainty": dict(apply_fn=adm, estimator_apply_fn=act_noise, sampler="ddim",
+                            estimator=make_estimator(EstimatorConfig(name="uncertainty", M=M))),
+        "uncertainty_grad": dict(apply_fn=adm, sampler="ddim",
+                                 guidance=Guidance(grad_guidance.init, timed(grad_guidance.apply, "window steps"))),
     }
     out = {"card": card}
     for name, kw in protocols.items():
@@ -105,9 +116,11 @@ def main(argv=None) -> None:
         timing[0] = True
         res, total = run()
         timing[0] = False
-        parts = {k: v for k, v in split.items() if k != "guided calls"}
+        parts = {k: v for k, v in split.items() if k not in ("guided calls", "window steps")}
         if "guided calls" in split:
             parts["guidance terms (classifier forward + backward)"] = split["guided calls"] - split[f"ADM calls at batch {BATCH}"]
+        if "window steps" in split:
+            parts["backwards and the guidance's own work"] = split["window steps"] - split[f"ADM calls at batch {M * BATCH}"]
         parts["the rest (sampler, estimator, host)"] = total - sum(parts.values())
         with tempfile.TemporaryDirectory() as d:
             t0 = time.perf_counter()

@@ -20,7 +20,8 @@ step index), and x0 and the reconstruction are compared in [0, 1] unless
 ``--reference-scale true`` (the reference's [0, 1] against [0, 255]).
 Without ``--data-root`` the images are the synthetic dataset. Each batch
 draws its noise from ``TorchNoise(batch_seed(seed, b))``: first ε, then the
-sampler's draws (``utils.rng``). The results files are JSON values on YAML
+sampler's draws (``utils.rng``). Every scheduler type of the dataset CLI
+runs, ``uncertainty_grad`` as its guidance. The results files are JSON values on YAML
 lines (``utils.config.save_config``), so no YAML package is needed.
 """
 
@@ -108,7 +109,8 @@ def make_run_batch(bundle, cfg: Config):
         start_step=half,
     )
     est, guid = resolve_scheduler_transform(
-        EstimatorConfig(name=cfg.scheduler_type, M=cfg.M, num_zigzag=cfg.num_zigzag, predict_next=cfg.predict_next)
+        EstimatorConfig(name=cfg.scheduler_type, M=cfg.M, num_zigzag=cfg.num_zigzag, predict_next=cfg.predict_next),
+        timesteps=ts,
     )
 
     def run_batch(x0: torch.Tensor, y: torch.Tensor, noise):

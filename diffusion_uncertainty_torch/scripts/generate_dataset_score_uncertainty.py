@@ -18,23 +18,26 @@ schedule (``factory``), and writes the run's shards (``sampling``) into
 and builds the model with its Winograd conv route on. Runs: ``cifar10``,
 ``imagenet64``, ``imagenet128``, ``tiny`` and the U-ViT latent datasets
 ``imagenet256`` and ``imagenet512`` (sampled in latent space and decoded to
-images by the bundle's VAE) with ``uncertainty_centered``,
-``uncertainty_zigzag_centered``, ``mc_dropout`` and
-``dpm_2_uncertainty_centered`` (the centered estimator on the DPM-Solver++
-sampler), and ADM classifier guidance (``--classifier-scale`` > 0: the
-trajectory forward guided by the dataset's noisy classifier,
-``factory.load_classifier``; the window's ensemble runs the unguided model):
+images by the bundle's VAE) with every scheduler type of the JAX CLI: the
+estimators of ``uncertainty.ESTIMATORS`` (``uncertainty`` and
+``uncertainty_original`` on the activation-noise forward, ``mc_dropout`` on
+the dropout forward, ``dpm_2_uncertainty_centered`` on the DPM-Solver++
+sampler) and ``uncertainty_grad``, a guidance
+(``uncertainty.resolve_scheduler_transform``); and ADM classifier guidance
+(``--classifier-scale`` > 0: the trajectory forward guided by the dataset's
+noisy classifier, ``factory.load_classifier``; the window's ensemble runs
+the unguided model):
 
     python -m diffusion_uncertainty_torch.scripts.generate_starting_points --datasets imagenet256
     python -m diffusion_uncertainty_torch.scripts.generate_dataset_score_uncertainty --dataset imagenet256 \\
         --scheduler-type uncertainty_zigzag_centered --random-init true --num-samples 8 --batch-size 8 \\
         --M 5 --num-zigzag 3 --generation-steps 50 --start-step-uc 40 --num-steps-uc 10
-    python -m diffusion_uncertainty_torch.scripts.generate_dataset_score_uncertainty --dataset imagenet128 \
-        --classifier-scale 1.0 --scheduler-type uncertainty_zigzag_centered --random-init true --num-samples 8 \
-        --batch-size 8 --M 5 --num-zigzag 3 --generation-steps 50 --start-step-uc 40 --num-steps-uc 10
+    python -m diffusion_uncertainty_torch.scripts.generate_dataset_score_uncertainty --dataset imagenet128 \\
+        --scheduler-type uncertainty_grad --random-init true --num-samples 8 --batch-size 8 --M 5 \\
+        --generation-steps 50 --start-step-uc 40 --num-steps-uc 10
 
-Not ported yet (each raises naming its ROADMAP.md queue 1 item): the other
-scheduler types and the device mesh.
+Not ported yet: the device mesh (``--mesh-data`` > 1 exits naming ROADMAP.md
+queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -49,12 +52,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..classifier_guidance import with_classifier_guidance
 from ..diffusion.ddim import DiffusionConfig
 from ..diffusion.sampler import SamplerConfig
-from ..classifier_guidance import with_classifier_guidance
+from ..diffusion.schedule import spaced_timesteps
 from ..factory import instantiate_model_scheduler, load_classifier
 from ..sampling import generate_uncertainty_dataset
-from ..uncertainty import ESTIMATORS, EstimatorConfig, make_estimator
+from ..uncertainty import EstimatorConfig, resolve_scheduler_transform
 from ..utils import paths
 from ..utils.config import parse_config, save_config
 from ..utils.experiments import new_run_dir
@@ -96,18 +100,15 @@ class Config:
     device: str = "cuda"
 
 
-# scheduler types of the JAX CLI that the port does not run yet
-_NOT_PORTED = {
-    "uncertainty_grad": "item 23 (the remaining guidance makers)",
-}
-
-
 def select_apply_fn(bundle, scheduler_type: str):
     """(trajectory forward, estimator forward or None). The stochastic
-    variant's noise lives only in the uncertainty ensemble: the trajectory
-    forward is deterministic."""
+    variants' noise lives only in the uncertainty ensemble (MC dropout, the
+    activation noise of the original estimator): the trajectory forward is
+    deterministic."""
     if scheduler_type == "mc_dropout":
         return bundle.apply_fn, bundle.apply_fn_dropout
+    if scheduler_type in ("uncertainty", "uncertainty_original"):
+        return bundle.apply_fn, bundle.apply_fn_act_noise
     return bundle.apply_fn, None
 
 
@@ -130,18 +131,10 @@ def local_shard_bounds(total: int, rank: int, world: int) -> tuple[int, int]:
     return start, stop
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.scheduler_type in _NOT_PORTED:
-        raise SystemExit(f"scheduler type {cfg.scheduler_type!r} is not ported yet: ROADMAP.md queue 1, {_NOT_PORTED[cfg.scheduler_type]}")
-    if cfg.scheduler_type not in ESTIMATORS:
-        raise SystemExit(f"scheduler type {cfg.scheduler_type!r} is not ported yet: ROADMAP.md queue 1, item 9 (estimators)")
-    if cfg.mesh_data > 1:
-        raise SystemExit("the device mesh is not ported yet: ROADMAP.md queue 1, item 18 (parallelism)")
-
-
 def main(argv=None) -> Path:
     cfg = parse_config(Config, argv)
-    _check_ported(cfg)
+    if cfg.mesh_data > 1:
+        raise SystemExit("the device mesh is not ported yet: ROADMAP.md queue 1, item 18 (parallelism)")
     winograd = os.environ.get("DU_TPU_WINOGRAD", "0") == "1"
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
     bundle = instantiate_model_scheduler(
@@ -166,15 +159,17 @@ def main(argv=None) -> Path:
         after_step=cfg.start_step_uc,
         num_steps_uc=cfg.num_steps_uc,
     )
-    estimator = make_estimator(
-        EstimatorConfig(
-            name=cfg.scheduler_type,
-            M=cfg.M,
-            num_zigzag=cfg.num_zigzag,
-            predict_next=cfg.predict_next,
-            ensemble_chunk=cfg.ensemble_chunk,
-        )
+    est_cfg = EstimatorConfig(
+        name=cfg.scheduler_type,
+        M=cfg.M,
+        num_zigzag=cfg.num_zigzag,
+        predict_next=cfg.predict_next,
+        uncertainty_distance=cfg.uncertainty_distance,
+        ensemble_chunk=cfg.ensemble_chunk,
+        eta=cfg.eta,
     )
+    ts = spaced_timesteps(bundle.schedule.num_train_timesteps, cfg.generation_steps)
+    estimator, guidance = resolve_scheduler_transform(est_cfg, timesteps=ts, dcfg=DiffusionConfig(eta=cfg.eta))
     apply_fn, estimator_apply_fn = select_apply_fn(bundle, cfg.scheduler_type)
     if cfg.classifier_scale > 0:
         classifier = load_classifier(cfg.dataset, random_init=cfg.random_init, device=cfg.device)
@@ -197,6 +192,7 @@ def main(argv=None) -> Path:
         cfg.batch_size,
         seed=cfg.seed,
         estimator=estimator,
+        guidance=guidance,
         estimator_apply_fn=estimator_apply_fn,
         run_dir=run_dir,
         shard_offset=cfg.worker_index * 100000,  # disjoint shard ids per worker

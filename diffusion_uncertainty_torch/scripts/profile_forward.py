@@ -5,6 +5,7 @@
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model vae --batch 1
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model uvit256 --batch 8
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model adm128_classifier --batch 8
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model adm128_grad --batch 40
     PYTHONPATH=<another checkout> python <this file> --model vae --batch 1
 
 No JAX counterpart (the JAX package's profiles are TPU traces). Builds the
@@ -20,11 +21,16 @@ on 64x64x4 latents from ``factory.instantiate_model_scheduler(random_init=True)`
 bf16, t=500; ``adm128_classifier``: the ImageNet-128 noisy classifier from
 ``factory.load_classifier(random_init=True)`` in float32, t=500, one
 "forward" being the classifier-guidance term, a forward and the backward to
-its input), times ``ITERS`` forwards on the host
+its input; ``adm128_grad``: ImageNet-128 ADM from
+``factory.instantiate_model_scheduler(random_init=True)``, bf16, t=500, one
+"forward" being a forward and the backward of a scalar of its ε to the
+float32 input, the unit of work of every gradient guidance, whose batch is
+the folded ensemble, M·B = 40 for M=5 and 8 images), times ``ITERS`` forwards on the host
 clock (ending in a synchronize), then traces ``TRACE`` more with
 ``torch.profiler`` and prints the device time
 per forward by kernel family and the largest kernels, the device's busy
-share of the wall time and the kernel launches per forward. Run by its path
+share of the wall time, the kernel launches per forward and the peak
+device memory (``torch.cuda.max_memory_allocated``). Run by its path
 with another checkout first on the path, it profiles that checkout's port.
 """
 
@@ -41,7 +47,7 @@ from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, Autoencod
 from diffusion_uncertainty_torch.pipelines import pseudo_text_embeddings
 from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config, _build, build_sd_stack, init_random_
 
-MODELS = "sd15 | adm128 | cifar10 | vae | uvit256 | uvit512 | adm128_classifier"
+MODELS = "sd15 | adm128 | cifar10 | vae | uvit256 | uvit512 | adm128_classifier | adm128_grad"
 ITERS = 10  # forwards timed on the host clock
 TRACE = 3  # forwards traced by torch.profiler
 # kernel-name substrings -> family, first match wins
@@ -111,6 +117,20 @@ def build(model: str, batch: int, device, winograd: bool = False):
         y = torch.randint(0, clf.cfg.out_channels, (batch,), generator=gen, device=device)
         term = with_classifier_guidance(lambda *a: torch.zeros_like(x), clf, make_schedule("linear", 1000, device=device), 1.0)
         return (lambda: term(x, 500, y, None)), sum(p.numel() for p in clf.parameters())
+    if model == "adm128_grad":
+        from diffusion_uncertainty_torch.factory import instantiate_model_scheduler
+
+        bundle = instantiate_model_scheduler("imagenet128", random_init=True, device=device)
+        x = torch.randn(batch, 128, 128, 3, generator=gen, device=device)
+        y = torch.randint(0, bundle.num_classes, (batch,), generator=gen, device=device)
+
+        def grad_step():
+            with torch.enable_grad():
+                xr = x.detach().requires_grad_(True)
+                eps = bundle.apply_fn(xr, 500, y, None)
+                return torch.autograd.grad(eps.float().square().mean(), xr)[0]
+
+        return grad_step, sum(p.numel() for p in bundle.model.parameters())
     raise SystemExit(f"unknown model {model!r}: {MODELS}")
 
 
@@ -125,6 +145,7 @@ def main(argv=None) -> int:
         raise SystemExit("profile_forward needs a CUDA card")
     dev = torch.device("cuda")
     fwd, n_params = build(args.model, args.batch, dev, bool(args.winograd))
+    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         for _ in range(2):
             fwd()
@@ -153,12 +174,12 @@ def main(argv=None) -> int:
     out = {
         "model": args.model, "batch": args.batch, "winograd": bool(args.winograd), "params_m": n_params / 1e6, "device": torch.cuda.get_device_name(0),
         "wall_ms": wall_ms, "device_ms": device_ms, "device_busy": device_ms / wall_ms,
-        "launches_per_forward": launches,
+        "launches_per_forward": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
         "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": {n: ms for n, (ms, _) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]},
     }
     print(f"{args.model} batch {args.batch} winograd {args.winograd}: {wall_ms:.2f} ms wall per forward, device busy {device_ms:.2f} ms "
-          f"({100 * device_ms / wall_ms:.0f}%), {launches:.0f} kernel launches")
+          f"({100 * device_ms / wall_ms:.0f}%), {launches:.0f} kernel launches, peak memory {out['peak_mem_gb']:.2f} GiB")
     for fam, ms in out["families_ms"].items():
         print(f"  {fam:<26} {ms:8.3f} ms")
     for name, ms in out["top_kernels_ms"].items():

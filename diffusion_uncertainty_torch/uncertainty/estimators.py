@@ -1,13 +1,18 @@
-"""Pixel-wise uncertainty estimators over the model function (main-path part).
+"""Pixel-wise uncertainty estimators over the model function.
 
-JAX counterpart: ``diffusion_uncertainty_tpu/uncertainty/estimators.py``.
-Ported so far: ``uncertainty_centered``, ``uncertainty_zigzag_centered``
-(and their aliases), ``mc_dropout``, and ``_ensemble_noised_scores``, which
-the guidance shares. ``vmap`` over the M ensemble members becomes members
-folded into the batch; ``lax.map`` becomes a loop over member groups. Where
-JAX hands each member its own key for a stochastic model (``mc_dropout``),
-the port hands the folded forward the noise source, and the model draws one
-mask of the folded [M·B, ...] activation per dropout site (``utils.rng``).
+JAX counterpart: ``diffusion_uncertainty_tpu/uncertainty/estimators.py``
+(the whole registry: ``uncertainty`` / ``uncertainty_original``
+(activation noise), ``uncertainty_centered``, ``uncertainty_zigzag_centered``,
+``mc_dropout``, ``uncertainty_image``, ``uncertainty_centered_d``,
+``infer_noise``, ``flip``, ``uncertainty_grad``, ``dpm_2_uncertainty_centered``
+and the short aliases; ``make_flip_grad_estimator``). ``vmap`` over the M
+ensemble members becomes members folded into the batch; ``lax.map`` becomes
+a loop over member groups. Where JAX hands each member its own key for a
+stochastic model (``mc_dropout``, activation noise), the port hands the
+folded forward the noise source, and the model draws one tensor of the
+folded [M·B, ...] activation per site (``utils.rng``). Where JAX splits an
+estimator's key into ``k_noise`` and ``k_model``, the port draws the
+ensemble's re-noise [M, *shape] first and the model draws after it.
 
 Estimator contract (see ``diffusion.sampler``):
     estimator(model_fn, schedule, state: StepState, noise) -> u  [B, ...] float32
@@ -19,18 +24,19 @@ import dataclasses
 from functools import partial
 from typing import Callable
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..diffusion.sampler import ModelFn, StepState
 from ..diffusion.schedule import NoiseSchedule
 
-__all__ = ["EstimatorConfig", "make_estimator", "ESTIMATORS", "ensemble_forward"]
+__all__ = ["EstimatorConfig", "make_estimator", "make_flip_grad_estimator", "ESTIMATORS", "ensemble_forward"]
 
 
 @dataclasses.dataclass(frozen=True)
 class EstimatorConfig:
-    """Estimator knobs, as in the JAX package (the fields of estimators not
-    ported yet come with them)."""
+    """Estimator knobs, as in the JAX package."""
 
     name: str = "uncertainty_centered"
     M: int = 5  # ensemble size
@@ -41,8 +47,10 @@ class EstimatorConfig:
     # one re-noise+forward, so collapsing them to one forward per member
     # keeps the output distribution. Off by default, as in the reference.
     zigzag_collapse: bool = False
+    uncertainty_distance: int = 20  # inference steps ahead for centered_d
     # 0: all M members folded into one batch; c > 0: members c at a time
     ensemble_chunk: int = 0
+    eta: float = 0.0  # DDIM eta of the image-space estimator's x_{t-1}
 
 
 def _member_groups(m: int, chunk: int) -> list[range]:
@@ -89,10 +97,10 @@ def _centered_u(scores: torch.Tensor, pred_epsilon: torch.Tensor) -> torch.Tenso
 
 def _ensemble_noised_scores(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
     """[M, B, ...] scores of M independently re-noised forwards (one
-    [M, *shape] float32 draw from ``noise``)."""
+    [M, *shape] float32 draw from ``noise``, then the model's draws)."""
     noises = noise.normal((cfg.M,) + tuple(state.pred_x0.shape), torch.float32, state.pred_x0.device)
     x_hats = torch.stack([_renoise(schedule, state, n, cfg.predict_next) for n in noises])
-    return ensemble_forward(model_fn, x_hats, state.timestep, cfg.ensemble_chunk)
+    return ensemble_forward(model_fn, x_hats, state.timestep, cfg.ensemble_chunk, noise)
 
 
 def centered(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
@@ -137,35 +145,156 @@ def mc_dropout(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig
     return torch.var(scores.float(), dim=0, correction=1)
 
 
+def activation_noise(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
+    """The reference's original estimator: M forwards on the same x_t, each
+    member with its own N(0, 0.01²) noise at the model's activation-noise
+    sites; u = mean_m (score_m − pred_eps)². ``model_fn`` draws the site
+    noise from ``noise`` (the bundle's ``apply_fn_act_noise``): one tensor of
+    the folded [M·B, ...] activation per site per group forward, and no
+    other draw."""
+    xs = state.sample.expand((cfg.M,) + tuple(state.sample.shape))
+    return _centered_u(ensemble_forward(model_fn, xs, state.timestep, cfg.ensemble_chunk, noise), state.pred_epsilon)
+
+
+def infer_noise(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
+    """Centered-style re-noised forwards reduced as Var_m with ddof=1. Draws:
+    one [M, *shape] re-noise, then the model's."""
+    scores = _ensemble_noised_scores(model_fn, schedule, state, noise, cfg)
+    return torch.var(scores.float(), dim=0, correction=1)
+
+
+def image_space(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
+    """Each member's score carried to image space x_{t-1} (DDIM with
+    ``cfg.eta``) and Var_m with ddof=1 there. Draws: one [M, *shape]
+    re-noise, then the model's."""
+    noises = noise.normal((cfg.M,) + tuple(state.pred_x0.shape), torch.float32, state.pred_x0.device)
+    x_hats = torch.stack([_renoise(schedule, state, n, cfg.predict_next) for n in noises])
+    scores = ensemble_forward(model_fn, x_hats, state.timestep, cfg.ensemble_chunk, noise).float()
+    ab_t = schedule.alpha_bar(state.timestep)
+    ab_prev = schedule.alpha_bar(state.prev_timestep)
+    std_dev_t = cfg.eta * torch.sqrt((1.0 - ab_prev) / (1.0 - ab_t) * (1.0 - ab_t / ab_prev))
+    x0 = (x_hats.float() - torch.sqrt(1.0 - ab_t) * scores) / torch.sqrt(ab_t)
+    direction = torch.sqrt(torch.clamp(1.0 - ab_prev - std_dev_t**2, min=0.0)) * scores
+    return torch.var(torch.sqrt(ab_prev) * x0 + direction, dim=0, correction=1)
+
+
+def centered_d(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig, timesteps: np.ndarray, step_index: int):
+    """Centered estimator evaluated ``uncertainty_distance`` inference steps
+    ahead: the model runs at the end timestep ``timesteps[step + d]`` (d cut
+    at the last step) on x̂ = x_est·√ā + √(1−ā)·n with ā = ᾱ_t / ᾱ_end, and
+    u = mean_m (score_m − pred_eps)². As JAX, the end timestep's value is
+    passed to the model and indexes ᾱ (the reference passes the step
+    index). Draws: one [M, *shape] re-noise, then the model's."""
+    n_steps = len(timesteps)
+    d = min(cfg.uncertainty_distance, n_steps - step_index - 1)
+    end_t = int(timesteps[min(max(step_index + d, 0), n_steps - 1)])
+    ab_t = schedule.alpha_bar(state.timestep)
+    ab_end = schedule.alpha_bar(end_t) if d > 0 else torch.ones_like(ab_t)
+    true_alpha = ab_t / ab_end
+    eps = state.pred_epsilon.float()
+    x_est = (state.sample.float() - torch.sqrt(1.0 - true_alpha) * eps) / torch.sqrt(true_alpha)
+    noises = noise.normal((cfg.M,) + tuple(state.sample.shape), torch.float32, state.sample.device)
+    x_hats = (x_est * torch.sqrt(true_alpha) + torch.sqrt(1.0 - true_alpha) * noises).to(state.sample.dtype)
+    return _centered_u(ensemble_forward(model_fn, x_hats, end_t, cfg.ensemble_chunk, noise), eps)
+
+
+def flip(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
+    """One forward on pred_x0 flipped along H (dim 1 in NHWC; the reference
+    flips dim 2 of NCHW): u = (pred_eps − flip(model(flip(x0), t)))². Draws:
+    the model's only."""
+    flipped = torch.flip(state.pred_x0.to(state.sample.dtype), dims=(1,))
+    out = torch.flip(model_fn(flipped, state.timestep, noise), dims=(1,))
+    d = state.pred_epsilon.float() - out.float()
+    return d * d
+
+
+def grad_based(model_fn, schedule, state: StepState, noise, cfg: EstimatorConfig):
+    """u = |∂ Σ mean_m (score_m − ε)² / ∂ε| over M re-noised forwards around
+    the x0 re-derived (unclipped) from ε, the gradient taken through the
+    model (autograd on around it; the kernels' autograd wrappers carry it).
+    Draws: one [M, *shape] re-noise, then the model's."""
+    ab_t = schedule.alpha_bar(state.timestep)
+    with torch.enable_grad():
+        eps = state.pred_epsilon.float().detach().requires_grad_(True)
+        x0 = (state.sample.float() - torch.sqrt(1.0 - ab_t) * eps) / torch.sqrt(ab_t)
+        scores = _ensemble_noised_scores(model_fn, schedule, state._replace(pred_epsilon=eps, pred_x0=x0), noise, cfg)
+        d = scores.float() - eps[None]
+        (grad,) = torch.autograd.grad(torch.sum(torch.mean(d * d, dim=0)), eps)
+    return grad.abs()
+
+
+def make_flip_grad_estimator(model, y=None):
+    """flip_grad: activation-gradient saliency of the flip-consistency loss
+    MSE(ε(x), flip(ε(flip x))) on the first 3 channels. The gradient is taken
+    at every ResBlock tap of the ADM (``ADMUNet.forward(taps=)``; one tap
+    tensor serves both forwards, as JAX's perturbations collection); each
+    map is channel-amaxed, min-max normalised over the whole tensor (1e-20
+    floor), upscaled to H×W nearest (integer power-of-two factors, where
+    ``F.interpolate`` and ``jax.image.resize`` pick the same pixels), and
+    the maps' amax is u [B, H, W, 1]. The ``model_fn`` passed is ignored:
+    the estimator needs the module (JAX ``make_flip_grad_estimator``, which
+    documents why the reference's own block cannot run). Draws: none."""
+
+    def estimator(model_fn, schedule, state: StepState, noise):
+        x, t = state.sample, state.timestep
+        b, height, width, _ = x.shape
+        taps: dict = {}
+        with torch.enable_grad():
+            eps = model(x, t, y, taps=taps)[..., :3]
+            eps_f = model(torch.flip(x, dims=(1,)), t, y, taps=taps)[..., :3]
+            d = eps.float() - torch.flip(eps_f, dims=(1,)).float()
+            grads = torch.autograd.grad(torch.mean(d * d), list(taps.values()))
+        maps = []
+        for g in grads:
+            g = g.float().abs().amax(dim=-1, keepdim=True)
+            g = (g - g.min()) / (g.max() - g.min() + 1e-20)
+            g = F.interpolate(g.permute(0, 3, 1, 2), size=(height, width), mode="nearest").permute(0, 2, 3, 1)
+            maps.append(g)
+        return torch.cat(maps, dim=-1).amax(dim=-1, keepdim=True)
+
+    return estimator
+
+
 ESTIMATORS: dict[str, Callable] = {
+    # canonical names: the reference CLI's --scheduler-type choices
+    "uncertainty": activation_noise,
+    "uncertainty_original": activation_noise,
     "uncertainty_centered": centered,
     "uncertainty_zigzag_centered": zigzag_centered,
+    "mc_dropout": mc_dropout,
+    "uncertainty_image": image_space,
+    "uncertainty_centered_d": centered_d,
+    "infer_noise": infer_noise,
+    "flip": flip,
+    "uncertainty_grad": grad_based,
+    # DPM-Solver-2 carries the centered estimator inside its step (sampler="dpm")
     "dpm_2_uncertainty_centered": centered,
+    # short aliases
     "centered": centered,
     "zigzag_centered": zigzag_centered,
-    "mc_dropout": mc_dropout,
+    "image": image_space,
+    "centered_d": centered_d,
 }
 
-# estimators of the JAX registry that the port does not have yet
-NOT_PORTED = (
-    "uncertainty", "uncertainty_original", "uncertainty_image",
-    "uncertainty_centered_d", "infer_noise", "flip", "uncertainty_grad",
-    "image", "centered_d",
-)
 
-
-def make_estimator(cfg: EstimatorConfig):
+def make_estimator(cfg: EstimatorConfig, timesteps=None):
     """Bind an EstimatorConfig to its estimator. The zigzag family always
     re-noises from x_{t-1}: the reference's zigzag schedulers hardcode
-    ``predict_next=True``."""
+    ``predict_next=True``. ``centered_d`` needs the inference timestep table
+    and recovers the step index from the state's timestep value (the first
+    match; index 0 when none matches, as JAX's ``argmax``)."""
     fn = ESTIMATORS.get(cfg.name)
     if fn is None:
-        if cfg.name in NOT_PORTED:
-            raise KeyError(
-                f"estimator {cfg.name!r} is not ported to the torch package yet; "
-                f"ported: {sorted(ESTIMATORS)}; still to port: {sorted(NOT_PORTED)}"
-            )
         raise KeyError(f"unknown estimator {cfg.name!r}; available: {sorted(ESTIMATORS)}")
     if fn is zigzag_centered and not cfg.predict_next:
         cfg = dataclasses.replace(cfg, predict_next=True)
+    if fn is centered_d:
+        if timesteps is None:
+            raise ValueError("centered_d needs the inference timestep table")
+        ts = np.asarray(timesteps)
+
+        def bound(model_fn, schedule, state, noise):
+            return centered_d(model_fn, schedule, state, noise, cfg, ts, int(np.argmax(ts == state.timestep)))
+
+        return bound
     return partial(fn, cfg=cfg)

@@ -8,7 +8,7 @@ and ``compute_threshold_pixel_wise``.
   the JAX CLI drew replayed, gives the JAX CLI's reconstruction up to one
   uint8 step and its summed maps at the sampler tests' relative tolerance.
 * ``compute_threshold_pixel_wise`` writes the JAX script's ``.npz`` bytes.
-* ``uncertainty_grad`` raises an error that names its ROADMAP.md item.
+* ``compute_ause`` runs ``uncertainty_grad`` (a guidance) on ``tiny``.
 * The metric, dataset and CLI modules import no JAX (a subprocess that
   blocks the import).
 """
@@ -206,11 +206,16 @@ def test_ause_mc_dropout_runs_through_select_apply_fn(monkeypatch, tmp_path):
     assert (tmp_path / "results" / "ause" / "tiny" / "ause_vs_M_mc_dropout.jsonl").read_text().count("\n") == 2
 
 
-def test_uncertainty_grad_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 23"):
-        resolve_scheduler_transform(EstimatorConfig(name="uncertainty_grad"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 23"):
-        tause.main(TINY + CPU + ["--scheduler-type", "uncertainty_grad"])
+def test_uncertainty_grad_names_its_roadmap_item(monkeypatch, tmp_path):
+    """``uncertainty_grad`` (ROADMAP.md queue 1 item 23, now ported) resolves
+    to its guidance, and ``compute_ause`` runs it on ``tiny``."""
+    est, guidance = resolve_scheduler_transform(EstimatorConfig(name="uncertainty_grad"))
+    assert est is None and guidance is not None
+    monkeypatch.setenv("DIFFUSION_UNCERTAINTY_ROOT", str(tmp_path))
+    res = tause.main(TINY + CPU + ["--scheduler-type", "uncertainty_grad", "--num-samples", "3", "--batch-size", "2",
+                                   "--num-steps-uc", "4", "--M", "2"])
+    assert np.isfinite(res.ause) and np.isfinite(res.aurg) and res.uncertainty_mean > 0 and res.images == 3
+    assert (tmp_path / "results" / "ause" / "tiny" / "results_uncertainty_grad.yaml").exists()
     est, guidance = resolve_scheduler_transform(EstimatorConfig(name="uncertainty_zigzag_centered"))
     assert callable(est) and guidance is None
 
