@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and hold its kernels to account.
 
-    python3 chip_smoke.py [--details PATH]   # one card, about eight minutes
+    python3 chip_smoke.py [--details PATH]   # one card, about ten minutes
 
 Phases (a failure in any of them ends the run with a non-zero exit):
 
@@ -17,7 +17,11 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    at batch 128 (the CLI batch), ADM-64 at batch 8 (phase 9's batch), U-ViT-huge
    at batch 8 (the trajectory) and 40 (the folded M=5 ensemble), the bf16
    VAE decodes of the U-ViT datasets (a 32x32 latent at batch 8, a 64x64 latent
-   at batch 1) and the ImageNet-128 noisy classifier at batch 8 (phase 11; it
+   at batch 1), the joint attention of SD3-medium and SD3.5-large (D=64, 24
+   and 38 heads, 1040 tokens) at batch 2 and 10 and of Flux-dev (D=128) at
+   batch 1 and 5 (phase 13, which fails unless its forwards make exactly
+   these shapes), SD3-medium's over 1024 + 77 tokens at batch 8 (phase
+   13d), and the ImageNet-128 noisy classifier at batch 8 (phase 11; it
    runs in float32, so its GroupNorm, attention and avg-pool shapes are timed
    in float32, its D=64 attention on the CUDA-core route against SDPA and a
    bound at 67 TFLOP/s of float32 FMAs), in bfloat16 and float32. Tolerances:
@@ -201,10 +205,37 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    ``gradient``, ``second_order`` and ``mask`` (10 steps, window [8, 10)):
    a record appended each, the guided images differ from the plain ones.
 
+13. SD3-medium, SD3.5-large and Flux-dev on the flow-matching sampler, the
+   t2i CLI's models (``build_flow_stack``: seeded random weights drawn in
+   bf16 on the card), 512x512 (64x64x16 latents, 1024 image and 16
+   pseudo-text tokens). (a) Each full-width forward (t=500; SD3 models at
+   the CFG batch 2, Flux at batch 1 with guidance 7500; inputs rounded to
+   bf16) against float32 (SD3-medium on the CPU at batch 1; SD3.5-large and
+   Flux-dev, 32 and 48 GB of float32 weights, on the card through the plain
+   versions, the weights converted in place): rel L2 <= 2e-2 and at most
+   1e-3 above the same bf16 forward through the plain versions; exactly 24,
+   38 and 19 + 38 attention launches, all on the tensor-core route, at
+   phase 2's shapes. (b) The t2i CLI with no ``--device`` at its defaults
+   (20 steps, window [0, 20), M=5 folded, percentile 0.95, CFG 7.5,
+   ``--random-init true``): sd3 and flux in the gradient and the posterior
+   branch, sd35 posterior: the JAX CLI's file names, maps (20, 1, 64, 64,
+   16) finite with positive mean, model calls 2·20 + 20 (posterior) or
+   2·20 + 2·20 with 40 under autograd (gradient: each window step's
+   ensemble call is checkpointed and recomputed), attention launches =
+   calls x sites, attention backwards = sites x half the autograd calls;
+   guided and plain seconds, images/s, peak memory. (c) One sd3 posterior
+   run with ``--vae-weights`` (a seeded random 16-channel decoder, float32):
+   ``output_sd3_uc.png`` and ``output_sd3.png`` at 512x512, 2 x 19 GroupNorm
+   pairs and the two decodes' D=512 attention on the wide route. (d)
+   ``bench.py`` ``run_sd3``'s protocol through ``sample_flow_match_stepwise``
+   (SD3-medium, batch 4, 16 steps, M=2 posterior on [8, 16), CFG 7.0, 77
+   zero context tokens, bf16 latents), twice: images/s of the second run
+   (information, not a benchmark cell).
+
 Every forward of phases 3, 5, 7, 9a, 10 and 11a must launch each kernel of its
 model; each main path (phase 4, each run of phase 6, each run of phase 8, the
 AUSE, NLL and dataset-CLI runs of phase 9, phase 10b, phases 11b and 11c,
-and each run of phase 12) sets the launch
+each run of phase 12 and each CLI run of phase 13) sets the launch
 counters to 0 just before and reads them just after, and fails if a kernel of
 its path never launched. Each phase prints its seconds. The last two lines are the kernels
 JSON (``launches``: the sum over the main-path runs; avg_pool_2x2 and
@@ -247,7 +278,16 @@ F32_FLOPS = 67e12  # float32 outside the tensor cores (the CUDA-core attention r
 F32_ATTENTION_FLOPS, F32_ATTENTION_ARITH = 495e12 / 3, "3xTF32 (495/3 TFLOP/s)"
 # the batch each model's shapes are checked at; the first is the main path's
 CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,), "adm64": (ADM64_BATCH,),
-                 "uvit": (UVIT_BATCH, UVIT_M * UVIT_BATCH), "uvae": (UVIT_BATCH,), "uvae512": (1,), "clf": (CLF_BATCH,)}
+                 "uvit": (UVIT_BATCH, UVIT_M * UVIT_BATCH), "uvae": (UVIT_BATCH,), "uvae512": (1,), "clf": (CLF_BATCH,),
+                 "sd3": (2, 10), "sd35": (2, 10), "flux": (1, 5), "sd3_bench": (8,)}
+# the flow-matching transformers of phase 13 at the t2i CLI's defaults (a
+# 512x512 image: 64x64x16 latents, 1024 image tokens and 16 pseudo-text
+# tokens): (heads, head dim, attention sites a forward); each is held and
+# timed in phase 2 at its plain (CFG) batch and its folded M=5 batch
+FLOW_TOKENS = 1024 + 16
+FLOW_MODELS = {"sd3": (24, 64, 24), "sd35": (38, 64, 38), "flux": (24, 128, 19 + 38)}
+# bench.py run_sd3's protocol (phase 13d): batch 4 (8 with CFG), 77 context tokens
+SD3_BENCH = {"batch": 4, "steps": 16, "M": 2, "cfg": 7.0, "tokens": 77}
 PAIRED = ("adm", "adm64", "clf")  # models whose forward resamples two tensors a launch
 # the single form of the two resampling kernels, one tensor a launch
 RESAMPLE_FORMS = {"avg_pool_2x2": "single", "interleave_2x": "phase"}
@@ -664,6 +704,13 @@ def main() -> None:
     sets = {"adm": shape_sets(rec_adm.sigs), "sd": shape_sets(rec_sd.sigs), "vae": shape_sets(rec_vae.sigs),
             "cifar": shape_sets(rec_cifar.sigs), "adm64": shape_sets(rec_adm64.sigs), "uvit": shape_sets(rec_uvit.sigs),
             "uvae": shape_sets(rec_uvae.sigs), "uvae512": shape_sets(rec_uvae512.sigs), "clf": shape_sets(rec_clf.sigs)}
+    # the joint attention of the flow-matching transformers (q, k, v made by
+    # concatenating the image and text streams): phase 13 records each
+    # forward and fails unless it makes exactly these shapes
+    for m, (heads, d, _) in FLOW_MODELS.items():
+        sets[m] = shape_sets([("attention", (FLOW_TOKENS, FLOW_TOKENS, heads, d, "separate", None))])
+    n_bench = 1024 + SD3_BENCH["tokens"]
+    sets["sd3_bench"] = shape_sets([("attention", (n_bench, n_bench, 24, 64, "separate", None))])
     for src, ss in sets.items():
         print(f"[2] {src} shapes: " + ", ".join(f"{k} {len(v)}" for k, v in ss.items()), flush=True)
     names = tuple(KERNELS)
@@ -1907,13 +1954,266 @@ def main() -> None:
     details.update(phase12=phase12)
     lap(12)
 
+    # ---- phase 13: SD3-medium, SD3.5-large and Flux-dev on the flow-matching sampler
+    import gc
+
+    from diffusion_uncertainty_torch.diffusion.flow_match import FlowMatchConfig, sample_flow_match_stepwise
+    from diffusion_uncertainty_torch.models import AutoencoderKLConfig, FluxTransformer, MMDiT
+    from diffusion_uncertainty_torch.scripts import generate_t2i_guided as t2i
+
+    def free_card():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def flow_inputs(m, cfg, b, tokens=16):
+        """Latents, context, pooled text (bf16-representable, so a float32
+        reference sees the card's inputs) and the model's extra argument."""
+        g13 = torch.Generator(device=dev).manual_seed(SEED + 13)
+        r = lambda *shape: torch.randn(*shape, generator=g13, device=dev).to(torch.bfloat16).float()  # noqa: E731
+        extra = (7500.0,) if m == "flux" else ()
+        return r(b, 64, 64, 16), r(b, tokens, cfg.joint_attention_dim), r(b, cfg.pooled_projection_dim), extra
+
+    # 13a: full-width forwards against float32
+    phase13: dict = {}
+    for m, (heads, d, sites) in FLOW_MODELS.items():
+        t0 = time.perf_counter()
+        stack = t2i.build_flow_stack(T2IConfig(model=m, random_init=True), device=dev)
+        model13, mcfg13, b = stack.model, stack.mcfg, (1 if m == "flux" else 2)
+        n_p = sum(p.numel() for p in model13.parameters())
+        x13, c13, p13, extra = flow_inputs(m, mcfg13, b)
+        build_s = time.perf_counter() - t0
+        with torch.no_grad():
+            model13(x13, 500.0, c13, p13, *extra)  # cuBLAS plans, outside the timed call
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with Recorder(wrapper_mods) as rec13:
+                t0 = time.perf_counter()
+                out13 = model13(x13, 500.0, c13, p13, *extra)
+                torch.cuda.synchronize()
+                fwd_s = time.perf_counter() - t0
+            counts13, routes13 = kernels.launch_counts(), kernels.route_counts()
+            with PlainKernels(wrapper_mods, plains):
+                out_plain = model13(x13, 500.0, c13, p13, *extra)
+        want_sig = {(FLOW_TOKENS, FLOW_TOKENS, heads, d, "separate", None)}
+        got_sig = {sig for name, sig in rec13.sigs if name == "attention"}
+        if counts13["attention"] != sites or routes13["tensor_core"] != sites or got_sig != want_sig:
+            fail(f"13a {m}: {counts13['attention']} attention launches by route {routes13} at {got_sig}; want {sites} on the "
+                 f"tensor-core route at {want_sig} (phase 2's shapes)")
+        if any(v for k, v in counts13.items() if k != "attention") or not bool(torch.isfinite(out13).all()):
+            fail(f"13a {m}: kernels {counts13}, finite {bool(torch.isfinite(out13).all())}")
+        t0 = time.perf_counter()
+        if m == "sd3":  # float32 on the CPU at batch 1, as phases 3 and 5
+            with torch.device("meta"):
+                ref_model = MMDiT(mcfg13)
+            ref_model.load_state_dict({k: v.float().cpu() for k, v in model13.state_dict().items()}, assign=True)
+            with torch.no_grad():
+                ref13 = ref_model.eval()(x13[:1].cpu(), 500.0, c13[:1].cpu(), p13[:1].cpu())
+            where, out13, out_plain = "CPU, batch 1", out13[:1], out_plain[:1]
+            del ref_model
+        else:  # 32 / 48 GB of float32 weights: on the card in place of the bf16 ones, with the plain versions
+            with torch.no_grad():
+                for i, p in enumerate(model13.parameters()):
+                    p.data = p.data.float()  # frees the bf16 tensor
+                    if i % 64 == 0:
+                        torch.cuda.empty_cache()
+                with PlainKernels(wrapper_mods, plains):
+                    ref13 = model13(x13, 500.0, c13, p13, *extra)
+            where = "the card, plain versions"
+        ref_s = time.perf_counter() - t0
+        rel13, plain13 = rel_l2(out13, ref13), rel_l2(out_plain, ref13)
+        print(f"[13a] {m} forward ({n_p / 1e9:.3f}B params, bf16, batch {b}, {FLOW_TOKENS} tokens, t=500): built in "
+              f"{build_s:.1f} s, {fwd_s * 1e3:.1f} ms (second call); vs float32 on {where} ({ref_s:.1f} s): rel L2 "
+              f"{rel13:.3e} (limit 2e-2), the same bf16 forward through the plain versions {plain13:.3e} (limit: kernels "
+              f"<= plain + 1e-3); {counts13['attention']} attention launches a forward (want {sites}), route "
+              f"{json.dumps(routes13)}", flush=True)
+        if not (rel13 <= 2e-2 and rel13 <= plain13 + 1e-3):
+            fail(f"13a {m}: relative L2 error {rel13} (plain versions {plain13}; limits 2e-2 and plain + 1e-3)")
+        phase13[f"forward_{m}"] = {"params": n_p, "batch": b, "forward_ms": fwd_s * 1e3, "rel_l2": rel13,
+                                   "plain_rel_l2": plain13, "attention_per_forward": counts13["attention"]}
+        stack = model13 = out13 = out_plain = ref13 = None
+        free_card()
+    lap("13a")
+
+    # 13b-d: the CLI at its defaults; model calls, op backwards and sampler
+    # spans counted as they run
+    flow_calls = {"calls": 0, "grad_calls": 0}
+    saved_fwd = {cls: cls.forward for cls in (MMDiT, FluxTransformer)}
+    saved_att_bwd = op_att._Attention.backward
+    att_bwd = [0]
+    sampler_s: list = []
+    saved_sampler = t2i.sample_flow_match
+
+    def counted_forward(cls):
+        def forward(self, *a, **kw):
+            flow_calls["calls"] += 1
+            flow_calls["grad_calls"] += torch.is_grad_enabled()
+            return saved_fwd[cls](self, *a, **kw)
+
+        return forward
+
+    def counted_att_bwd(ctx, *grads):
+        att_bwd[0] += 1
+        return saved_att_bwd(ctx, *grads)
+
+    def timed_sampler(sampler):
+        """The CLI's sampler, each call's seconds kept (guided, then plain)."""
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sampler(*a, **kw)
+            torch.cuda.synchronize()
+            sampler_s.append(time.perf_counter() - t0)
+            return out
+
+        return run
+
+    def flow_run(tag, argv, m):
+        """t2i.main(argv) between zeroed and read counters: (its folder, the run's record)."""
+        flow_calls.update(calls=0, grad_calls=0)
+        att_bwd[0] = 0
+        sampler_s.clear()
+        t2i.sample_flow_match = timed_sampler(saved_sampler)
+        free_card()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            t2i.main(argv)
+        finally:
+            t2i.sample_flow_match = saved_sampler
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = {"s": wall, "sampler_s": list(sampler_s), "launches": kernels.launch_counts(), "routes": kernels.route_counts(),
+             "gn_routes": kernels.gn_route_counts(), "calls": flow_calls["calls"], "grad_calls": flow_calls["grad_calls"],
+             "attention_backwards": att_bwd[0], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        sites = FLOW_MODELS[m][2]
+        check_counts(r["launches"], ("attention",), tag)
+        if r["routes"]["tensor_core"] != r["calls"] * sites:
+            fail(f"{tag}: {r['routes']['tensor_core']} tensor-core attention launches for {r['calls']} forwards of "
+                 f"{sites} sites (routes {r['routes']})")
+        if r["attention_backwards"] * 2 != r["grad_calls"] * sites:
+            fail(f"{tag}: {r['attention_backwards']} attention backwards for {r['grad_calls']} forwards with autograd "
+                 f"(each member forward twice: once checkpointed, once recomputed) of {sites} sites")
+        out_dir = argv[argv.index("--out-dir") + 1]
+        return os.path.join(out_dir, "0"), r
+
+    def png_size(path):
+        with open(path, "rb") as f:
+            head = f.read(24)
+        return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+    n13, w13, m13 = 20, 20, 5  # the CLI's steps, window and members
+    MMDiT.forward, FluxTransformer.forward = counted_forward(MMDiT), counted_forward(FluxTransformer)
+    op_att._Attention.backward = staticmethod(counted_att_bwd)
+    try:
+        with tempfile.TemporaryDirectory() as root13:
+            # 13b: the CLI at its defaults, --random-init true, no --device
+            for m, post in (("sd3", False), ("sd3", True), ("flux", False), ("flux", True), ("sd35", True)):
+                tag = f"13b {m} {'posterior' if post else 'gradient'}"
+                out_dir = os.path.join(root13, f"{m}_{post}")
+                argv = ["--model", m, "--random-init", "true", "--use-posterior", str(post).lower(), "--out-dir", out_dir]
+                dest, r = flow_run(tag, argv, m)
+                stem = "flux" if m == "flux" else "sd3"
+                files = ["args.yaml", f"output_latent_preview_{stem}.png", f"output_latent_preview_{stem}_uc.png",
+                         "uncertainty.npz"]
+                if sorted(os.listdir(dest)) != files:
+                    fail(f"{tag}: files {sorted(os.listdir(dest))}, want {files}")
+                u = np.load(os.path.join(dest, "uncertainty.npz"))["data"]
+                if not (u.shape == (w13, 1, 64, 64, 16) and bool(np.isfinite(u).all()) and u.mean() > 0):
+                    fail(f"{tag}: maps {u.shape}, finite {bool(np.isfinite(u).all())}, mean {u.mean()}")
+                # the guided and the plain run's trajectory, and one folded ensemble call a window
+                # step (the gradient branch's twice: checkpointed, then recomputed)
+                want = (2 * n13 + (w13 if post else 2 * w13), 0 if post else 2 * w13)
+                if (r["calls"], r["grad_calls"]) != want:
+                    fail(f"{tag}: {r['calls']} model calls ({r['grad_calls']} with autograd), want {want}")
+                r.update(uncertainty_mean=float(u.mean()), guided_s=r["sampler_s"][0], plain_s=r["sampler_s"][1],
+                         guided_images_per_s=1.0 / r["sampler_s"][0])
+                print(f"[{tag}] --model {m} (512x512, 20 steps, window [0, 20), M=5 folded, p 0.95, CFG 7.5, bf16): "
+                      f"guided {r['guided_s']:.2f} s "
+                      f"({r['guided_images_per_s']:.4f} images/s), plain {r['plain_s']:.2f} s, {r['s']:.1f} s with the "
+                      f"build, on {card}; {r['calls']} model calls ({r['grad_calls']} with autograd), attention "
+                      f"{r['launches']['attention']} launches, {r['attention_backwards']} backwards; peak memory "
+                      f"{r['peak_mem_gib']:.2f} GiB; maps {list(u.shape)} mean {r['uncertainty_mean']:.4e}", flush=True)
+                phase13[f"cli_{m}_{'posterior' if post else 'gradient'}"] = r
+
+            # 13c: the 16-channel VAE decode (float32) with seeded random weights
+            vae_file = os.path.join(root13, "sd3_vae.pt")
+            with torch.device("meta"):
+                vae13 = AutoencoderKL(AutoencoderKLConfig.sd3_kl())
+            torch.save(t2i.init_random_(vae13.to_empty(device="cpu"), 13).state_dict(), vae_file)
+            del vae13
+            argv = ["--model", "sd3", "--random-init", "true", "--use-posterior", "true", "--vae-weights", vae_file,
+                    "--out-dir", os.path.join(root13, "decode")]
+            dest, r = flow_run("13c sd3 decode", argv, "sd3")
+            files = sorted(os.listdir(dest))
+            sizes = [png_size(os.path.join(dest, n)) for n in ("output_sd3_uc.png", "output_sd3.png") if n in files]
+            if files != ["args.yaml", "output_sd3.png", "output_sd3_uc.png", "uncertainty.npz"] or sizes != [(512, 512)] * 2:
+                fail(f"13c: files {files}, image sizes {sizes}")
+            check_counts(r["launches"], ("group_norm", "gn_stats", "gn_apply", "attention", "attention_long"), "13c")
+            if r["gn_routes"]["pair"] != 2 * VAE_PAIRS or r["routes"]["wide"] != 2:
+                fail(f"13c: GroupNorm routes {r['gn_routes']} (want {2 * VAE_PAIRS} pairs: two decodes), attention "
+                     f"routes {r['routes']} (want the two decodes' D=512 on the wide route)")
+            print(f"[13c] --model sd3 --use-posterior true --vae-weights (16-channel VAE, float32): images "
+                  f"{sizes}; kernels {json.dumps(r['launches'])}; GroupNorm routes {json.dumps(r['gn_routes'])}; "
+                  f"attention routes {json.dumps(r['routes'])}; peak memory {r['peak_mem_gib']:.2f} GiB", flush=True)
+            phase13["cli_sd3_decode"] = r
+    finally:
+        MMDiT.forward, FluxTransformer.forward = saved_fwd[MMDiT], saved_fwd[FluxTransformer]
+        op_att._Attention.backward = staticmethod(saved_att_bwd)
+    lap("13b-c")
+
+    # 13d: bench.py run_sd3's protocol through the stepwise sampler (not a
+    # benchmark cell): SD3-medium, batch 4, 16 steps, M=2 posterior on [8, 16),
+    # CFG 7.0 over 77 zero context tokens, bf16 latents
+    stack = t2i.build_flow_stack(T2IConfig(model="sd3", random_init=True), device=dev)
+    bb, nb = SD3_BENCH["batch"], SD3_BENCH["steps"]
+    ctx_b = torch.zeros(2 * bb, SD3_BENCH["tokens"], 4096, device=dev)
+    pooled_b = torch.zeros(2 * bb, 2048, device=dev)
+
+    def bench_velocity(x, t):
+        vu, vc = stack.model(torch.cat([x, x]), t, ctx_b, pooled_b).chunk(2)
+        return vu + SD3_BENCH["cfg"] * (vc - vu)
+
+    fm13 = FlowMatchConfig(num_inference_steps=nb, shift=3.0, after_step=nb // 2, num_steps_uc=nb // 2, M=SD3_BENCH["M"],
+                           use_posterior=True)
+    bench13 = []
+    for i in range(2):  # the first run makes the cuBLAS plans of the batch-8 shapes
+        noise13 = TorchNoise(SEED + 70 + i, dev)
+        x_b = noise13.normal((bb, 64, 64, 16)).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res13 = sample_flow_match_stepwise(bench_velocity, x_b, noise13, fm13)
+        torch.cuda.synchronize()
+        bench13.append(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+    calls_b = nb + (nb // 2) * SD3_BENCH["M"]
+    if counts["attention"] != calls_b * FLOW_MODELS["sd3"][2] or not bool(torch.isfinite(res13.sample.float()).all()):
+        fail(f"13d: {counts['attention']} attention launches (want {calls_b * FLOW_MODELS['sd3'][2]}), finite "
+             f"{bool(torch.isfinite(res13.sample.float()).all())}")
+    if tuple(res13.uncertainty.shape) != (nb // 2, bb, 64, 64, 16) or not float(res13.uncertainty.mean()) > 0:
+        fail(f"13d: maps {tuple(res13.uncertainty.shape)} mean {float(res13.uncertainty.mean())}")
+    print(f"[13d] run_sd3's protocol (SD3-medium, batch {bb}, {nb} steps, M={SD3_BENCH['M']} posterior on [{nb // 2}, "
+          f"{nb}), CFG {SD3_BENCH['cfg']}, {SD3_BENCH['tokens']} context tokens, sample_flow_match_stepwise): "
+          f"{bench13[1]:.2f} s, {bb / bench13[1]:.3f} images/s on {card} (first run {bench13[0]:.2f} s; "
+          f"information, not a benchmark cell); {calls_b} forwards of batch {2 * bb}", flush=True)
+    phase13["run_sd3_protocol"] = {"s": bench13, "images_per_s": bb / bench13[1], "launches": counts}
+    del stack, res13
+    free_card()
+    details.update(phase13=phase13)
+    lap("13d")
+    print(f"[13] phase time {sum(details['phase_s'][k] for k in ('13a', '13b-c', '13d')):.1f} s", flush=True)
+
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
             json.dump(details, f, indent=1, default=str)
 
     path_runs = (*sd_runs.values(), *cifar_runs.values(), *(r for r in metric_runs.values() if "launches" in r),
-                 uvit_runs["main path"], guided_runs["guided"], guided_runs["dpm"], *phase12.values())
+                 uvit_runs["main path"], guided_runs["guided"], guided_runs["dpm"], *phase12.values(),
+                 *(r for k, r in phase13.items() if k.startswith("cli_")))
     launches = {k: adm_launches[k] + sum(r["launches"][k] for r in path_runs) for k in names}
     entries = []
     for k, (src, replaces) in KERNELS.items():

@@ -47,6 +47,7 @@ from .models import (
     UViT, UViTConfig,
 )
 from .models.layers import GroupNorm32
+from .models.mmdit import _QKNorm
 from .utils import paths
 from .utils.device import resolve_device
 
@@ -191,8 +192,8 @@ def _load(module: torch.nn.Module, ckpt: Path) -> None:
 
 def init_normal_(module: torch.nn.Module, gen: torch.Generator, std: float = 0.02) -> torch.nn.Module:
     """Seeded random weights in place: N(0, std²) from ``gen`` in parameter
-    order, LayerNorm and GroupNorm scales 1 and shifts 0."""
-    norms = {n for n, m in module.named_modules() if isinstance(m, (torch.nn.LayerNorm, GroupNorm32))}
+    order, LayerNorm, GroupNorm and RMS q/k-norm scales 1 and shifts 0."""
+    norms = {n for n, m in module.named_modules() if isinstance(m, (torch.nn.LayerNorm, GroupNorm32, _QKNorm))}
     with torch.no_grad():
         for name, p in module.named_parameters():
             owner, _, leaf = name.rpartition(".")

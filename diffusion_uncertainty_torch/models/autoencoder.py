@@ -51,6 +51,22 @@ class AutoencoderKLConfig:
         return AutoencoderKLConfig()
 
     @staticmethod
+    def sd3_kl() -> "AutoencoderKLConfig":
+        """SD3's 16-channel VAE (diffusers sd3 vae config: scaling_factor
+        1.5305, shift_factor 0.0609, no quant convs)."""
+        return AutoencoderKLConfig(
+            z_channels=16, embed_dim=16, scale_factor=1.5305, shift_factor=0.0609, use_quant_conv=False
+        )
+
+    @staticmethod
+    def flux_kl() -> "AutoencoderKLConfig":
+        """Flux's 16-channel VAE (scaling_factor 0.3611, shift_factor 0.1159,
+        no quant convs)."""
+        return AutoencoderKLConfig(
+            z_channels=16, embed_dim=16, scale_factor=0.3611, shift_factor=0.1159, use_quant_conv=False
+        )
+
+    @staticmethod
     def tiny() -> "AutoencoderKLConfig":
         return AutoencoderKLConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1)
 

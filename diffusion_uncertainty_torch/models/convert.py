@@ -23,7 +23,13 @@ exactly:
   (CompVis KL-f8 layout; the encoder and quant convs when the parameters
   have them);
 * ``uvit_state_dict_from_flax`` inverts ``convert_uvit`` (the reference
-  ``uvit/uvit.py`` layout; the fused qkv rows need no permutation).
+  ``uvit/uvit.py`` layout; the fused qkv rows need no permutation);
+* ``mmdit_state_dict_from_flax`` inverts ``convert_sd3_mmdit`` (diffusers
+  ``SD3Transformer2DModel`` layout; the last block has no text-stream
+  output projection or MLP);
+* ``flux_state_dict_from_flax`` inverts ``convert_flux`` (diffusers
+  ``FluxTransformer2DModel`` layout), undoing its token permutation of the
+  ``x_embedder`` rows and ``proj_out`` columns.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ __all__ = [
     "sd_unet_state_dict_from_flax",
     "autoencoder_kl_state_dict_from_flax",
     "uvit_state_dict_from_flax",
+    "mmdit_state_dict_from_flax",
+    "flux_state_dict_from_flax",
+    "flux_token_permutation",
     "legacy_qkv_permutation",
 ]
 
@@ -392,4 +401,100 @@ def uvit_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
     out.dense("decoder_pred", P["decoder_pred"])
     if cfg.final_conv:
         out.conv("final_layer", P["final_layer"])
+    return out.sd
+
+
+def mmdit_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``MMDiT`` params -> diffusers ``SD3Transformer2DModel`` state dict
+    (``convert_sd3_mmdit`` read backwards)."""
+    P = params.get("params", params)
+    out = _Out()
+    out.conv("pos_embed.proj", P["patch_embed"])
+    out.put("pos_embed.pos_embed", np.asarray(P["pos_embed"]).reshape(1, cfg.pos_embed_max_size**2, cfg.dim))
+    te = P["time_text_embed"]
+    out.dense("time_text_embed.timestep_embedder.linear_1", te["timestep_dense_0"])
+    out.dense("time_text_embed.timestep_embedder.linear_2", te["timestep_dense_1"])
+    out.dense("time_text_embed.text_embedder.linear_1", te["text_dense_0"])
+    out.dense("time_text_embed.text_embedder.linear_2", te["text_dense_1"])
+    out.dense("context_embedder", P["context_embedder"])
+    out.dense("norm_out.linear", P["norm_out_linear"])
+    out.dense("proj_out", P["proj_out"])
+    for i in range(cfg.num_layers):
+        t, blk = f"transformer_blocks.{i}", P[f"block_{i}"]
+        out.dense(f"{t}.norm1.linear", blk["norm1_linear"])
+        out.dense(f"{t}.norm1_context.linear", blk["norm1_context_linear"])
+        for n in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
+            out.dense(f"{t}.attn.{n}", blk[n])
+        out.dense(f"{t}.attn.to_out.0", blk["to_out"])
+        out.dense(f"{t}.ff.net.0.proj", blk["ff_proj"])
+        out.dense(f"{t}.ff.net.2", blk["ff_out"])
+        if cfg.qk_norm == "rms_norm":
+            out.put(f"{t}.attn.norm_q.weight", blk["qk_norm"]["q_scale"])
+            out.put(f"{t}.attn.norm_k.weight", blk["qk_norm"]["k_scale"])
+            out.put(f"{t}.attn.norm_added_q.weight", blk["qk_norm_added"]["added_q_scale"])
+            out.put(f"{t}.attn.norm_added_k.weight", blk["qk_norm_added"]["added_k_scale"])
+        if i != cfg.num_layers - 1:
+            out.dense(f"{t}.attn.to_add_out", blk["to_add_out"])
+            out.dense(f"{t}.ff_context.net.0.proj", blk["ff_context_proj"])
+            out.dense(f"{t}.ff_context.net.2", blk["ff_context_out"])
+    return out.sd
+
+
+def flux_token_permutation(channels: int) -> np.ndarray:
+    """The JAX model's patch-major ``(p1, p2, c)`` token features against the
+    channel-major ``(c, p1, p2)`` of diffusers and the port: feature ``i`` of
+    a JAX token is feature ``perm[i]`` of the port's (JAX
+    ``_flux_token_perm``)."""
+    p1, p2, c = np.meshgrid(np.arange(2), np.arange(2), np.arange(channels), indexing="ij")
+    return (c * 4 + p1 * 2 + p2).ravel()
+
+
+def flux_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``FluxTransformer`` params -> diffusers ``FluxTransformer2DModel``
+    state dict (``convert_flux`` read backwards, its token permutation of
+    the ``x_embedder`` rows and ``proj_out`` columns undone)."""
+    P = params.get("params", params)
+    out = _Out()
+    perm = flux_token_permutation(cfg.in_channels)
+    k_in = np.asarray(P["x_embedder"]["kernel"])
+    x_kernel = np.empty_like(k_in)
+    x_kernel[perm] = k_in
+    k_out, b_out = np.asarray(P["proj_out"]["kernel"]), np.asarray(P["proj_out"]["bias"])
+    head_kernel, head_bias = np.empty_like(k_out), np.empty_like(b_out)
+    head_kernel[:, perm], head_bias[perm] = k_out, b_out
+    out.dense("x_embedder", {"kernel": x_kernel, "bias": P["x_embedder"]["bias"]})
+    out.dense("proj_out", {"kernel": head_kernel, "bias": head_bias})
+    out.dense("context_embedder", P["context_embedder"])
+    for n in ("timestep", "guidance", "text"):  # flux-schnell has no guidance embedder
+        if f"{n}_dense_0" in P:
+            out.dense(f"time_text_embed.{n}_embedder.linear_1", P[f"{n}_dense_0"])
+            out.dense(f"time_text_embed.{n}_embedder.linear_2", P[f"{n}_dense_1"])
+    out.dense("norm_out.linear", P["norm_out_linear"])
+
+    def qk(pfx: str, blk: dict, added: bool) -> None:
+        a = "added_" if added else ""
+        out.put(f"{pfx}.attn.norm_{a}q.weight", blk[f"{a}q_scale"])
+        out.put(f"{pfx}.attn.norm_{a}k.weight", blk[f"{a}k_scale"])
+
+    for i in range(cfg.num_layers):
+        t, blk = f"transformer_blocks.{i}", P[f"block_{i}"]
+        out.dense(f"{t}.norm1.linear", blk["norm1_linear"])
+        out.dense(f"{t}.norm1_context.linear", blk["norm1_context_linear"])
+        for n in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj", "to_add_out"):
+            out.dense(f"{t}.attn.{n}", blk[n])
+        qk(t, blk, False)
+        qk(t, blk, True)
+        out.dense(f"{t}.attn.to_out.0", blk["to_out"])
+        out.dense(f"{t}.ff.net.0.proj", blk["ff_proj"])
+        out.dense(f"{t}.ff.net.2", blk["ff_out"])
+        out.dense(f"{t}.ff_context.net.0.proj", blk["ff_context_proj"])
+        out.dense(f"{t}.ff_context.net.2", blk["ff_context_out"])
+    for i in range(cfg.num_single_layers):
+        t, blk = f"single_transformer_blocks.{i}", P[f"single_block_{i}"]
+        out.dense(f"{t}.norm.linear", blk["norm_linear"])
+        for n in ("to_q", "to_k", "to_v"):
+            out.dense(f"{t}.attn.{n}", blk[n])
+        qk(t, blk, False)
+        out.dense(f"{t}.proj_mlp", blk["proj_mlp"])
+        out.dense(f"{t}.proj_out", blk["proj_out"])
     return out.sd

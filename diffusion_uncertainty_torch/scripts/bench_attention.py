@@ -7,7 +7,9 @@ No JAX counterpart. Builds ``kernels/csrc/attention.cu``, then for each shape
 (the ones ``chip_smoke.py`` phase 2 records from the full-width forwards:
 ADM-128 at batch 8, the SD 1.5 UNet at batch 2 and its M=5 ensemble batch
 10, the SD VAE at batch 1 in float32 and bf16, the CIFAR-10 UNet at batch
-128; and a few with keys masked by kv_len inside the last key tile and
+128, the joint attention of SD3-medium, SD3.5-large (D=64) and Flux-dev
+(D=128) over 1040 tokens at the CFG / plain batch and the folded M=5
+ensemble; and a few with keys masked by kv_len inside the last key tile and
 split, which SDPA times without the mask) draws seeded random q, k, v, runs ``kernels.attention.attention`` once,
 and holds it to ``attention_plain`` (bf16: max error <= 2^-6·max|plain| and
 relative L2 <= 5e-3; float32: max error <= 1e-4·max|plain|) and, on the wide
@@ -53,6 +55,15 @@ SHAPES = (
     ("adm", 8, "bfloat16", 64, 64, 4, 256, "legacy", None),
     ("cifar", 128, "bfloat16", 16, 16, 1, 256, "separate", None),
     ("cifar", 128, "bfloat16", 256, 256, 1, 256, "separate", None),
+    # the flow-matching transformers' joint attention at the t2i CLI's
+    # defaults (1024 image + 16 text tokens): the plain (CFG) batch, then the
+    # folded M=5 ensemble
+    ("sd3", 2, "bfloat16", 1040, 1040, 24, 64, "separate", None),
+    ("sd3", 10, "bfloat16", 1040, 1040, 24, 64, "separate", None),
+    ("sd35", 2, "bfloat16", 1040, 1040, 38, 64, "separate", None),
+    ("sd35", 10, "bfloat16", 1040, 1040, 38, 64, "separate", None),
+    ("flux", 1, "bfloat16", 1040, 1040, 24, 128, "separate", None),
+    ("flux", 5, "bfloat16", 1040, 1040, 24, 128, "separate", None),
     ("mask", 2, "bfloat16", 1024, 128, 8, 40, "separate", 77),
     ("mask", 2, "bfloat16", 200, 200, 4, 160, "legacy", 150),
     ("mask", 1, "float32", 4096, 4096, 1, 512, "separate", 3999),
@@ -113,9 +124,11 @@ def main(argv=None) -> int:
               f"err {err:.3g} (max|plain| {ref_max:.4g})  rel L2 {rel:.3e}{split}{times}", flush=True)
         del q, k, v, got, ref
     if not args.no_time:
-        for model in ("sd", "vae", "adm", "cifar"):
+        for model in ("sd", "vae", "adm", "cifar", "sd3", "sd35", "flux"):
             for dt in ("bfloat16", "float32"):
-                sel = [r for r in rows if r["model"] == model and r["dtype"] == dt and not (model == "sd" and r["batch"] != 2)]
+                # each model's main-path batch: the first of its shapes
+                main_batch = next(r["batch"] for r in rows if r["model"] == model)
+                sel = [r for r in rows if r["model"] == model and r["dtype"] == dt and r["batch"] == main_batch]
                 if sel:
                     ms, lib = sum(r["ms"] for r in sel), sum(r["library_ms"] for r in sel)
                     print(f"sum {model:<5} {dt:<8} {len(sel)} shapes: {ms:.4f} ms, SDPA {lib:.4f} ms ({ms / lib:.2f}x)")

@@ -1,27 +1,41 @@
-"""Text-to-image uncertainty-guided generation (Stable Diffusion 1.5), guided
-against plain.
+"""Text-to-image uncertainty-guided generation, guided against plain: Stable
+Diffusion 1.5 on the DDIM pipeline, SD3 / SD3.5 (MMDiT) and Flux on the
+flow-matching sampler.
 
 JAX counterpart: ``diffusion_uncertainty_tpu/scripts/generate_t2i_guided.py``
-(``Config``, ``build_sd_stack``, ``main``). Runs the uncertainty-guided
-pipeline on a prompt and saves ``output_sd_uc.png``, ``uncertainty.npz`` and
-``args.yaml`` into a numbered folder, then (unless ``--skip-original true``)
-the plain pipeline's ``output_sd.png`` beside it.
+(``Config``, ``build_sd_stack``, ``run_flow_match_family``, ``main``). Runs
+the uncertainty-guided sampler on a prompt and saves the guided image,
+``uncertainty.npz`` (key ``data``) and ``args.yaml`` into a numbered folder,
+then (unless ``--skip-original true``) the plain run's image beside it:
+``output_sd_uc.png`` / ``output_sd.png`` for SD 1.5; for SD3 and Flux
+``output_sd3_uc.png`` / ``output_flux_uc.png`` (and the plain ones) when a
+VAE decodes (``--vae-weights``), else ``output_latent_preview_sd3_uc.png``
+etc., the first three latent channels.
 
     python -m diffusion_uncertainty_torch.scripts.generate_t2i_guided --random-init true
+    python -m diffusion_uncertainty_torch.scripts.generate_t2i_guided --model flux --random-init true
     python -m diffusion_uncertainty_torch.scripts.generate_t2i_guided \\
         --unet-weights unet.pt --vae-weights vae.pt --prompt "a photo of a cat"
 
 Models: ``sd15`` (the UNet in bfloat16 by default, the VAE decoder in
-float32 as in the JAX CLI) and ``tiny`` (float32).
-Weights: diffusers ``UNet2DConditionModel`` and CompVis KL-f8 state dicts
-(``torch.load``), or ``--random-init true``: seeded N(0, 0.02) weights with
-norm scales 1 and shifts 0, for the UNet and for a VAE, so the images have
-their real size with no checkpoint (the JAX CLI decodes only with
-``--vae-weights``). Conditioning: the CLIP text tower is not ported, so
-prompts enter as ``pseudo_text_embeddings`` (stamped ``pseudo_text: true``
-in ``args.yaml``), as in the JAX CLI without CLIP weights. Runs on the card
-unless ``--device cpu``; raises without a card. Not ported yet: sd21,
-sd3/flux, the safety checker and the streamed executor.
+float32 as in the JAX CLI) and ``tiny`` (float32); ``sd3`` (SD3-medium,
+2.0B), ``sd35`` (SD3.5-large, 8.1B) and ``flux`` (Flux-dev, 11.9B) in
+bfloat16 by default, with the 16-channel VAE decoder in float32, and
+``sd3-tiny`` / ``flux-tiny`` (float32). SD3 runs classifier-free guidance as
+one concatenated batch; Flux takes ``guidance_scale·1000`` through its
+guidance embedding. The flow-matching runs use shift 3 (dynamic shifting for
+Flux) and the folded ensemble (``diffusion.flow_match.sample_flow_match``).
+Weights: diffusers / CompVis state dicts (``torch.load``), or
+``--random-init true``: seeded N(0, 0.02) weights with norm scales 1 and
+shifts 0, drawn in the run type on the target device (for SD 1.5 a VAE too,
+so its images have their real size with no checkpoint; the JAX CLI decodes
+only with ``--vae-weights``). Conditioning: the CLIP / T5 text towers are not
+ported, so prompts enter as ``pseudo_text_embeddings`` (stamped
+``pseudo_text: true`` in ``args.yaml``), as in the JAX CLI without text
+weights. Runs on the card unless ``--device cpu``; raises without a card.
+Not ported yet, each exiting with its ROADMAP.md item: sd21, the real text
+towers (``--text-towers small|full``), the streamed executor
+(``--streamed true``) and the safety checker.
 """
 
 from __future__ import annotations
@@ -36,19 +50,25 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..diffusion.flow_match import FlowMatchConfig, sample_flow_match
 from ..diffusion.schedule import NoiseSchedule, make_schedule
 from ..factory import init_normal_
-from ..models import AutoencoderKL, AutoencoderKLConfig, SDUNet, SDUNetConfig
+from ..models import (
+    AutoencoderKL, AutoencoderKLConfig, FluxConfig, FluxTransformer, MMDiT, MMDiTConfig, SDUNet, SDUNetConfig,
+)
 from ..utils import paths
 from ..utils.config import parse_config, save_config
 from ..utils.device import resolve_device
 
-__all__ = ["Config", "SDStack", "build_sd_stack", "init_random_", "save_png", "main"]
+__all__ = [
+    "Config", "SDStack", "FlowStack", "build_sd_stack", "build_flow_stack", "run_flow_match_family", "init_random_",
+    "save_png", "main",
+]
 
 
 @dataclasses.dataclass
 class Config:
-    """Uncertainty-guided text-to-image generation (Stable Diffusion 1.5)."""
+    """Uncertainty-guided text-to-image generation."""
 
     prompt: str = "a photo of a cat"
     prompt_negative: str = ""
@@ -60,11 +80,17 @@ class Config:
     skip_original: bool = False
     use_posterior: bool = False
     strength: float = 0.99  # the guidance's lr
-    model: str = "sd15"  # sd15 | tiny
+    model: str = "sd15"  # sd15 | tiny | sd3 | sd3-tiny | sd35 | flux | flux-tiny
+    streamed: bool = False  # the JAX streamed executor (not ported)
     guidance_scale: float = 7.5
     M: int = 5
     unet_weights: Optional[str] = None  # diffusers UNet state dict (torch file)
     vae_weights: Optional[str] = None  # CompVis / diffusers KL-VAE state dict
+    # SD3 / Flux conditioning: "pseudo" (hash-seeded embeddings); the real
+    # towers "small" / "full" are not ported
+    text_towers: str = "pseudo"
+    towers_params_dir: Optional[str] = None  # converted tower checkpoints (with the towers)
+    tower_seq_len: int = 77  # per-tower token length (with the towers)
     random_init: bool = False
     dtype: str = "bfloat16"
     height: int = 512
@@ -84,28 +110,29 @@ class SDStack(NamedTuple):
 
 
 # ROADMAP.md queue 1 items of the models this CLI does not run yet
-_NOT_PORTED = {
-    "sd21": "item 22 (sd21)",
-    "sd3": "item 16 (SD3 MMDiT)",
-    "sd3-tiny": "item 16 (SD3 MMDiT)",
-    "sd35": "item 16 (SD3 MMDiT)",
-    "flux": "item 16 (Flux)",
-    "flux-tiny": "item 16 (Flux)",
-}
+_NOT_PORTED = {"sd21": "item 22 (sd21)"}
+FLOW_MODELS = ("sd3", "sd3-tiny", "sd35", "flux", "flux-tiny")
+PSEUDO_TEXT_LEN = 16  # tokens of the SD3 / Flux pseudo context (the JAX CLI's)
+
+
+def _not_ported(what: str, item: str) -> SystemExit:
+    return SystemExit(f"{what} is not ported yet: ROADMAP.md queue 1, {item}")
 
 
 def init_random_(module: torch.nn.Module, seed: int, std: float = 0.02) -> torch.nn.Module:
     """Seeded random weights in place: N(0, std) everywhere except the
-    GroupNorm / LayerNorm scales (1) and shifts (0)."""
+    GroupNorm / LayerNorm / RMS q/k-norm scales (1) and shifts (0)."""
     return init_normal_(module, torch.Generator(device=next(module.parameters()).device).manual_seed(seed), std)
 
 
 def _build(make: Callable[[], torch.nn.Module], weights: Optional[str], seed: int, device, dtype) -> torch.nn.Module:
     """``make()`` with the state dict in ``weights`` (or seeded random
-    weights) on ``device`` in ``dtype``, 4-D weights channels_last, no
-    autograd on the parameters."""
+    weights drawn in ``dtype`` on ``device``) on ``device`` in ``dtype``, 4-D
+    weights channels_last, no autograd on the parameters. The module is cast
+    while it is on the meta device, so random weights are allocated once, in
+    ``dtype``."""
     with torch.device("meta"):
-        module = make()
+        module = make().to(dtype)
     if weights:
         module.load_state_dict(torch.load(weights, map_location="cpu"), assign=True)
     else:
@@ -119,7 +146,7 @@ def build_sd_stack(cfg: Config, device=None) -> SDStack:
     tiny model), the scaled-linear schedule and the denoise / decode
     functions, on ``device`` (default ``cfg.device``: the card)."""
     if cfg.model in _NOT_PORTED:
-        raise SystemExit(f"model {cfg.model!r} is not ported yet: ROADMAP.md queue 1, {_NOT_PORTED[cfg.model]}")
+        raise _not_ported(f"model {cfg.model!r}", _NOT_PORTED[cfg.model])
     if cfg.model not in ("sd15", "tiny"):
         raise SystemExit(f"unknown model {cfg.model!r}: sd15 | tiny")
     dev = resolve_device(cfg.device if device is None else device)
@@ -146,6 +173,124 @@ def build_sd_stack(cfg: Config, device=None) -> SDStack:
         return unet(z, t, embeds)
 
     return SDStack(unet, vae, denoise_fn, decode_fn, schedule, latent_size, mcfg)
+
+
+class FlowStack(NamedTuple):
+    model: torch.nn.Module  # MMDiT or FluxTransformer
+    velocity_fn: Callable  # (x, t) -> v, the CLI's conditioning and guidance bound
+    decode_fn: Optional[Callable]  # latents -> images in [-1, 1], with --vae-weights
+    latent_size: int
+    mcfg: object  # MMDiTConfig or FluxConfig
+    is_flux: bool
+
+
+def build_flow_stack(cfg: Config, device=None) -> FlowStack:
+    """The SD3 / SD3.5 / Flux transformer, its velocity function with the
+    CLI's pseudo text conditioning (classifier-free guidance as one
+    concatenated batch for MMDiT, ``guidance_scale·1000`` as Flux's guidance
+    embedding) and, with ``--vae-weights``, the 16-channel VAE decoder, on
+    ``device`` (default ``cfg.device``: the card)."""
+    from ..pipelines.text_encoder import pseudo_text_embeddings
+
+    if cfg.model not in FLOW_MODELS:
+        raise SystemExit(f"unknown flow-matching model {cfg.model!r}: {' | '.join(FLOW_MODELS)}")
+    is_flux, tiny = cfg.model.startswith("flux"), cfg.model.endswith("tiny")
+    if cfg.text_towers not in ("pseudo", "small", "full"):
+        raise SystemExit(f"unknown --text-towers {cfg.text_towers!r}: pseudo | small | full")
+    if (cfg.text_towers != "pseudo" and not tiny) or cfg.towers_params_dir:
+        raise _not_ported(f"--text-towers {cfg.text_towers} (the CLIP / T5 text towers)", "item 20")
+    if tiny and cfg.text_towers != "pseudo":
+        print("tiny model configs have non-standard conditioning dims; falling back to pseudo embeddings")
+    dev = resolve_device(cfg.device if device is None else device)
+    dtype = torch.float32 if tiny or cfg.dtype == "float32" else torch.bfloat16
+    if is_flux:
+        mcfg = FluxConfig.tiny() if tiny else FluxConfig.flux_dev()
+        make, latent_size = (lambda: FluxTransformer(mcfg)), 8 if tiny else cfg.height // 8
+    else:
+        mcfg = MMDiTConfig.tiny() if tiny else MMDiTConfig.sd35_large() if cfg.model == "sd35" else MMDiTConfig.sd3_medium()
+        make, latent_size = (lambda: MMDiT(mcfg)), mcfg.sample_size if tiny else cfg.height // 8
+    if not (cfg.unet_weights or cfg.random_init or tiny):
+        raise SystemExit("need --unet-weights or --random-init true")
+    model = _build(make, cfg.unet_weights, 0, dev, dtype)
+
+    def embed(prompt: str, seq_len: int, dim: int) -> torch.Tensor:
+        return torch.from_numpy(pseudo_text_embeddings([prompt], seq_len=seq_len, dim=dim)).to(dev)
+
+    ctx, uncond_ctx = (embed(p, PSEUDO_TEXT_LEN, mcfg.joint_attention_dim) for p in (cfg.prompt, cfg.prompt_negative))
+    pooled, uncond_pooled = (embed(p, 1, mcfg.pooled_projection_dim)[:, 0] for p in (cfg.prompt, cfg.prompt_negative))
+    scale = cfg.guidance_scale
+    flux_guidance = scale * 1000.0 if is_flux and mcfg.guidance_embeds else None
+
+    def velocity_fn(x, t):
+        # x's batch is the prompts' times the ensemble members folded into it
+        n = x.shape[0] // ctx.shape[0]
+        c, p = ctx.repeat(n, 1, 1), pooled.repeat(n, 1)
+        if is_flux:
+            return model(x, t, c, p, flux_guidance)
+        if scale <= 1.0:
+            return model(x, t, c, p)
+        c2 = torch.cat([uncond_ctx.repeat(n, 1, 1), c])
+        p2 = torch.cat([uncond_pooled.repeat(n, 1), p])
+        vu, vc = model(torch.cat([x, x]), t, c2, p2).chunk(2)
+        return vu + scale * (vc - vu)
+
+    decode_fn = None
+    if cfg.vae_weights and not tiny:
+        acfg = AutoencoderKLConfig.flux_kl() if is_flux else AutoencoderKLConfig.sd3_kl()
+        # float32 whatever ``cfg.dtype``, as the JAX CLI decodes
+        decode_fn = _build(lambda: AutoencoderKL(acfg), cfg.vae_weights, 1, dev, torch.float32).decode
+    return FlowStack(model, velocity_fn, decode_fn, latent_size, mcfg, is_flux)
+
+
+def run_flow_match_family(cfg: Config) -> int:
+    """SD3 (MMDiT) / Flux on the flow-matching sampler: the guided run, then
+    (unless ``--skip-original``) the plain run from the same x_T, into a
+    numbered folder with ``args.yaml``."""
+    from ..utils.rng import TorchNoise
+
+    stack = build_flow_stack(cfg)
+    dev = next(stack.model.parameters()).device
+    print("pseudo text conditioning: prompts enter as hash-seeded Gaussian embeddings (no CLIP / T5 towers in this package)")
+    fm = FlowMatchConfig(
+        num_inference_steps=cfg.num_steps,
+        shift=3.0,
+        # Flux: the dynamic shift keyed on the 2x2-packed token count
+        use_dynamic_shifting=stack.is_flux,
+        image_seq_len=(stack.latent_size // 2) ** 2 if stack.is_flux else 0,
+        after_step=cfg.start_step_threshold,
+        num_steps_uc=cfg.num_steps_threshold,
+        M=cfg.M,
+        percentile=cfg.percentile,
+        use_posterior=cfg.use_posterior,
+        lr=cfg.strength,
+    )
+    base_dir = paths.flux_uncertainty_guidance() if stack.is_flux else paths.sd3_uncertainty_guidance()
+    dest = _numbered_dir(paths.ensure(base_dir if cfg.out_dir is None else Path(cfg.out_dir)))
+    save_config(cfg, dest / "args.yaml", pseudo_text=True, pseudo_tokens=False)
+
+    def to_png(sample: torch.Tensor) -> np.ndarray:
+        with torch.no_grad():
+            out = stack.decode_fn(sample) if stack.decode_fn is not None else sample[..., :3]
+        return out.float().cpu().numpy()
+
+    stem = "flux" if stack.is_flux else "sd3"
+    img_stem = stem if stack.decode_fn is not None else f"latent_preview_{stem}"
+    noise = TorchNoise(cfg.seed, dev)
+    x_T = noise.normal((1, stack.latent_size, stack.latent_size, stack.mcfg.in_channels))
+    t0 = time.perf_counter()
+    res = sample_flow_match(stack.velocity_fn, x_T, noise, fm)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    n_fwd = cfg.num_steps + min(cfg.num_steps_threshold, cfg.num_steps) * cfg.M
+    print(f"guided sampling: {time.perf_counter() - t0:.2f} s for {cfg.num_steps} steps (~{n_fwd} forwards) on {dev}")
+    save_png(dest / f"output_{img_stem}_uc.png", to_png(res.sample))
+    if res.uncertainty is not None:
+        np.savez(dest / "uncertainty.npz", data=res.uncertainty.cpu().numpy())
+    if not cfg.skip_original:
+        plain = sample_flow_match(stack.velocity_fn, x_T, noise, dataclasses.replace(fm, num_steps_uc=0))
+        save_png(dest / f"output_{img_stem}.png", to_png(plain.sample))
+    print(f"Saved to {dest}")
+    return 0
 
 
 def _png_bytes(img: np.ndarray) -> bytes:
@@ -182,6 +327,10 @@ def main(argv=None) -> int:
     from ..utils.rng import TorchNoise
 
     cfg = parse_config(Config, argv)
+    if cfg.streamed:
+        raise _not_ported("--streamed true (the streamed executor, pipelines/streamed.py)", "item 16")
+    if cfg.model in FLOW_MODELS:
+        return run_flow_match_family(cfg)
     stack = build_sd_stack(cfg)
     dev = stack.schedule.device
     mcfg = stack.mcfg

@@ -6,6 +6,8 @@
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model uvit256 --batch 8
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model adm128_classifier --batch 8
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model adm128_grad --batch 40
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model sd3 --batch 2   # also sd35, flux (--batch 1)
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model sd3_grad --batch 10   # also flux_grad --batch 5
     PYTHONPATH=<another checkout> python <this file> --model vae --batch 1
 
 No JAX counterpart (the JAX package's profiles are TPU traces). Builds the
@@ -25,7 +27,13 @@ its input; ``adm128_grad``: ImageNet-128 ADM from
 ``factory.instantiate_model_scheduler(random_init=True)``, bf16, t=500, one
 "forward" being a forward and the backward of a scalar of its ε to the
 float32 input, the unit of work of every gradient guidance, whose batch is
-the folded ensemble, M·B = 40 for M=5 and 8 images), times ``ITERS`` forwards on the host
+the folded ensemble, M·B = 40 for M=5 and 8 images; ``sd3`` / ``sd35`` /
+``flux``: SD3-medium, SD3.5-large, Flux-dev as the text-to-image CLI builds
+them (``build_flow_stack``, bf16) at a 64x64x16 latent with 16 pseudo-text
+tokens (1040 joint tokens), t=500, Flux's guidance 7500; batch 2 is SD3's
+CFG batch, 10 / 5 the folded M=5 ensemble; ``sd3_grad`` / ``flux_grad``: a
+forward and the backward of a scalar of its velocity to the float32 input,
+the unit of work of the flow-matching gradient branch), times ``ITERS`` forwards on the host
 clock (ending in a synchronize), then traces ``TRACE`` more with
 ``torch.profiler`` and prints the device time
 per forward by kernel family and the largest kernels, the device's busy
@@ -47,7 +55,8 @@ from diffusion_uncertainty_torch.models import ADMUNet, ADMUNetConfig, Autoencod
 from diffusion_uncertainty_torch.pipelines import pseudo_text_embeddings
 from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config, _build, build_sd_stack, init_random_
 
-MODELS = "sd15 | adm128 | cifar10 | vae | uvit256 | uvit512 | adm128_classifier | adm128_grad"
+MODELS = ("sd15 | adm128 | cifar10 | vae | uvit256 | uvit512 | adm128_classifier | adm128_grad | sd3 | sd35 | flux | "
+          "sd3_grad | flux_grad")
 ITERS = 10  # forwards timed on the host clock
 TRACE = 3  # forwards traced by torch.profiler
 # kernel-name substrings -> family, first match wins
@@ -131,6 +140,23 @@ def build(model: str, batch: int, device, winograd: bool = False):
                 return torch.autograd.grad(eps.float().square().mean(), xr)[0]
 
         return grad_step, sum(p.numel() for p in bundle.model.parameters())
+    if model.removesuffix("_grad") in ("sd3", "sd35", "flux"):
+        from diffusion_uncertainty_torch.scripts.generate_t2i_guided import build_flow_stack
+
+        stack = build_flow_stack(Config(model=model.removesuffix("_grad"), random_init=True), device=device)
+        cfg, net = stack.mcfg, stack.model
+        x = torch.randn(batch, 64, 64, 16, generator=gen, device=device)
+        ctx = torch.randn(batch, 16, cfg.joint_attention_dim, generator=gen, device=device)
+        pooled = torch.randn(batch, cfg.pooled_projection_dim, generator=gen, device=device)
+        extra = (7500.0,) if stack.is_flux else ()
+
+        def flow_grad_step():
+            with torch.enable_grad():
+                xr = x.detach().requires_grad_(True)
+                return torch.autograd.grad(net(xr, 500.0, ctx, pooled, *extra).square().mean(), xr)[0]
+
+        fwd = flow_grad_step if model.endswith("_grad") else (lambda: net(x, 500.0, ctx, pooled, *extra))
+        return fwd, sum(p.numel() for p in net.parameters())
     raise SystemExit(f"unknown model {model!r}: {MODELS}")
 
 

@@ -23,6 +23,8 @@ __all__ = [
     "fid_stats",
     "starting_points",
     "sd_uncertainty_guidance",
+    "sd3_uncertainty_guidance",
+    "flux_uncertainty_guidance",
 ]
 
 
@@ -76,3 +78,13 @@ def starting_points() -> Path:
 def sd_uncertainty_guidance() -> Path:
     """Numbered output folders of the text-to-image guided-generation CLI."""
     return results() / "stable-diffusion-uncertainty-guidance"
+
+
+def sd3_uncertainty_guidance() -> Path:
+    """Numbered output folders of the text-to-image CLI's SD3 / SD3.5 runs."""
+    return results() / "stable-diffusion-3-uncertainty-guidance"
+
+
+def flux_uncertainty_guidance() -> Path:
+    """Numbered output folders of the text-to-image CLI's Flux runs."""
+    return results() / "flux-uncertainty-guidance"

@@ -11,7 +11,8 @@
   ``uncertainty_zigzag_centered`` and returns the Gaussian draws the JAX run
   makes, in the port's draw order; ``jax_guidance_noise`` does the same for
   the percentile guidance (and the text-to-image pipeline's initial
-  latents); ``ReplayNoise`` hands them to the port.
+  latents), ``jax_flow_noise`` for the flow-matching text-to-image run;
+  ``ReplayNoise`` hands them to the port.
 """
 
 from __future__ import annotations
@@ -187,6 +188,23 @@ def jax_guidance_noise(key, shape, num_inference_steps, after_step, num_steps_uc
             key, _, k_est = jax.random.split(key, 3)
             k_noise, _ = jax.random.split(k_est)
             draws.append(np.asarray(jax.random.normal(k_noise, (M,) + tuple(shape), jnp.float32)))
+        else:
+            key, _ = jax.random.split(key)
+    return draws
+
+
+def jax_flow_noise(seed: int, shape, num_inference_steps, after_step, num_steps_uc, M):
+    """The standard-normal draws of the JAX text-to-image CLI's flow-matching
+    run: x_T from ``key(seed)``, then, walking ``key(seed + 1)`` as
+    ``sample_flow_match`` does (``flow_match.py:176-190``), one [M, *shape]
+    draw per window step (``:144``)."""
+    draws = [np.asarray(jax.random.normal(jax.random.key(seed), shape))]
+    w0, w1 = uncertainty_window(after_step, num_steps_uc, num_inference_steps) if num_steps_uc > 0 else (0, 0)
+    key = jax.random.key(seed + 1)
+    for i in range(num_inference_steps):
+        if w0 <= i < w1:
+            key, _, k_n, _ = jax.random.split(key, 4)
+            draws.append(np.asarray(jax.random.normal(k_n, (M,) + tuple(shape), jnp.float32)))
         else:
             key, _ = jax.random.split(key)
     return draws
