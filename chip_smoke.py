@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and hold its kernels to account.
 
-    python3 chip_smoke.py [--details PATH]   # one card, about ten minutes
+    python3 chip_smoke.py [--details PATH]   # one card, about twelve minutes
 
 Phases (a failure in any of them ends the run with a non-zero exit):
 
@@ -21,7 +21,11 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    and 38 heads, 1040 tokens) at batch 2 and 10 and of Flux-dev (D=128) at
    batch 1 and 5 (phase 13, which fails unless its forwards make exactly
    these shapes), SD3-medium's over 1024 + 77 tokens at batch 8 (phase
-   13d), and the ImageNet-128 noisy classifier at batch 8 (phase 11; it
+   13d), the same joint attention over the real text towers' 1024 + 154
+   (SD3, SD3.5) and 1024 + 77 tokens (Flux) at the same batches (phase 14b),
+   the SD 2.1 UNet at batch 2 and 10 (the CFG batch and the folded M=5
+   ensemble; its 64-wide heads over 4096 keys and its 5-key
+   cross-attention), and the ImageNet-128 noisy classifier at batch 8 (phase 11; it
    runs in float32, so its GroupNorm, attention and avg-pool shapes are timed
    in float32, its D=64 attention on the CUDA-core route against SDPA and a
    bound at 67 TFLOP/s of float32 FMAs), in bfloat16 and float32. Tolerances:
@@ -99,7 +103,9 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    decode, every pair launch on 16-byte words (phase 3
    holds the ADM forward to the one-launch route the same way). The UNet
    forward makes 3 interleave launches (its up-samplers).
-6. SD 1.5 main path, the CLI defaults: ``build_sd_stack`` +
+6. SD 1.5 main path, the CLI defaults with ``--vae-weights`` (a seeded random
+   decoder saved to a temporary folder, which the recording forwards of
+   phase 5 also use): ``build_sd_stack`` +
    ``TextToImageUncertaintyPipeline``, 512x512, 20 DDIM steps, CFG 7.5,
    percentile guidance on steps [0, 20) at 0.95 with M=5, gradient branch (lr
    0.99), one prompt; then once more with the posterior branch. Images
@@ -231,11 +237,44 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    (SD3-medium, batch 4, 16 steps, M=2 posterior on [8, 16), CFG 7.0, 77
    zero context tokens, bf16 latents), twice: images/s of the second run
    (information, not a benchmark cell).
+14. The real text towers, SD 2.1 and the safety checker. (a) CLIP-L with
+   projection (123.7M), CLIP-bigG (694.7M) and T5-XXL (4.76B) at full width
+   (``T2ITowers("sd3", "full")``: seeded random float32 weights drawn on the
+   card) on 77 pseudo token ids at batch 2: ``last_hidden``, ``penultimate``
+   and ``pooled`` within rel L2 1e-4 of float32 on the CPU at batch 1, or,
+   where the host's MemAvailable is under 2.5x T5's float32 bytes, T5 block
+   by block within 1e-5 of float64 on the card (which one is printed); fails
+   if TF32 is on for float32 matmuls. (b) The t2i CLI with no ``--device``:
+   ``--model sd3 --text-towers full`` (gradient and posterior), ``--model
+   flux --text-towers full`` (posterior), ``--model sd35 --text-towers
+   small`` (posterior): the JAX CLI's file names, ``args.yaml`` with
+   ``pseudo_text: false`` and ``pseudo_tokens`` as the towers found the
+   tokenizers (true where no tokenizer files are in the local Hugging Face
+   cache), two encodes of context / pooled [1, 154, 4096] / [1, 2048]
+   (SD3, SD3.5) or [1, 77, 4096] / [1, 768] (Flux), every attention launch
+   at the joint length 1178 or 1101 on the tensor-core route, calls x sites
+   of them; the towers' build and encode seconds, guided and plain seconds,
+   peak memory. (c) SD 2.1: the full-width bf16 UNet forward of the
+   recording (batch 2, t=500, the CLI's 5 x 1024 context) against float32 on
+   the CPU at batch 1 (rel L2 <= 2e-2 and at most 1e-3 above the plain
+   versions), its launches a forward equal to SD 1.5's (GroupNorm,
+   attention, ``attention_long``, interleave), every attention on the
+   tensor-core route; then ``--model sd21`` at the CLI defaults in both
+   branches (the RGBA latent grid, no GroupNorm pair) and posterior with
+   ``--vae-weights`` (512x512 RGB, 2 x 19 pairs, 2 wide attentions). (d) The
+   SD 1.5 CLI (posterior, ``--vae-weights``) with
+   ``--safety-checker-weights``, a seeded random ViT-L/14 checker saved to a
+   temporary folder: a first run with every threshold above 1 flags nothing;
+   concept 0 is then set along the gap between the two images' embeddings,
+   its threshold halfway, and the second run must flag the guided image
+   (black) and not the plain one (``nsfw_flags.yaml``); the checker's image
+   embeds on the card within rel L2 1e-4 of float32 on the CPU, and the
+   CPU's flags equal to the CLI's.
 
 Every forward of phases 3, 5, 7, 9a, 10 and 11a must launch each kernel of its
 model; each main path (phase 4, each run of phase 6, each run of phase 8, the
 AUSE, NLL and dataset-CLI runs of phase 9, phase 10b, phases 11b and 11c,
-each run of phase 12 and each CLI run of phase 13) sets the launch
+each run of phase 12 and each CLI run of phases 13 and 14) sets the launch
 counters to 0 just before and reads them just after, and fails if a kernel of
 its path never launched. Each phase prints its seconds. The last two lines are the kernels
 JSON (``launches``: the sum over the main-path runs; avg_pool_2x2 and
@@ -279,13 +318,17 @@ F32_ATTENTION_FLOPS, F32_ATTENTION_ARITH = 495e12 / 3, "3xTF32 (495/3 TFLOP/s)"
 # the batch each model's shapes are checked at; the first is the main path's
 CHECK_BATCHES = {"adm": (8, 2), "sd": (2,), "vae": (1,), "cifar": (CIFAR_BATCH,), "adm64": (ADM64_BATCH,),
                  "uvit": (UVIT_BATCH, UVIT_M * UVIT_BATCH), "uvae": (UVIT_BATCH,), "uvae512": (1,), "clf": (CLF_BATCH,),
-                 "sd3": (2, 10), "sd35": (2, 10), "flux": (1, 5), "sd3_bench": (8,)}
+                 "sd3": (2, 10), "sd35": (2, 10), "flux": (1, 5), "sd3_bench": (8,), "sd21": (2, 10),
+                 "sd3_towers": (2, 10), "sd35_towers": (2, 10), "flux_towers": (1, 5)}
 # the flow-matching transformers of phase 13 at the t2i CLI's defaults (a
 # 512x512 image: 64x64x16 latents, 1024 image tokens and 16 pseudo-text
 # tokens): (heads, head dim, attention sites a forward); each is held and
 # timed in phase 2 at its plain (CFG) batch and its folded M=5 batch
 FLOW_TOKENS = 1024 + 16
 FLOW_MODELS = {"sd3": (24, 64, 24), "sd35": (38, 64, 38), "flux": (24, 128, 19 + 38)}
+# the joint length with the real text towers (phase 14b): 1024 image tokens
+# and 77 CLIP + 77 T5 tokens (SD3, SD3.5) or 77 T5 tokens (Flux)
+FLOW_TOWER_TOKENS = {"sd3": 1024 + 154, "sd35": 1024 + 154, "flux": 1024 + 77}
 # bench.py run_sd3's protocol (phase 13d): batch 4 (8 with CFG), 77 context tokens
 SD3_BENCH = {"batch": 4, "steps": 16, "M": 2, "cfg": 7.0, "tokens": 77}
 PAIRED = ("adm", "adm64", "clf")  # models whose forward resamples two tensors a launch
@@ -314,6 +357,7 @@ ADM64_RESAMPLE = 3
 VAE_PAIRS = 19
 # the SD path: the UNet's kernels and the VAE decode's
 SD_PATH = ("group_norm", "gn_stats", "gn_apply", "attention", "attention_long", "interleave_2x")
+SD_UNET_PATH = ("group_norm", "attention", "attention_long", "interleave_2x")  # without a decode
 CIFAR_PATH = ("group_norm", "attention", "interleave_2x", "winograd")
 # the U-ViT path: the transformer's attention and the bf16 VAE decode's
 # kernels (at 256x256 output the 256-channel map takes the pair)
@@ -488,7 +532,8 @@ def main() -> None:
     from diffusion_uncertainty_torch.ops.groupnorm import _reference_impl
     from diffusion_uncertainty_torch.pipelines import T2IPipelineConfig, TextToImageUncertaintyPipeline, pseudo_text_embeddings
     from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config as T2IConfig
-    from diffusion_uncertainty_torch.scripts.generate_t2i_guided import build_sd_stack
+    from diffusion_uncertainty_torch.scripts.generate_t2i_guided import build_sd_stack, init_random_
+    from diffusion_uncertainty_torch.models import AutoencoderKLConfig
     from diffusion_uncertainty_torch.uncertainty import EstimatorConfig, make_estimator
     from diffusion_uncertainty_torch.utils import TorchNoise
     from diffusion_uncertainty_torch.utils.device import device_ms, graph_ms, host_us
@@ -569,7 +614,15 @@ def main() -> None:
     adm_fwd_counts, adm_gn_routes = kernels.launch_counts(), kernels.gn_route_counts()
     adm_resample = kernels.resample_counts()
 
-    stack = build_sd_stack(T2IConfig(random_init=True), device=dev)
+    # seeded random weight files that the CLI runs read (the SD VAE decoder:
+    # without --vae-weights the SD CLI saves latents, as the JAX CLI does)
+    work = tempfile.TemporaryDirectory()
+    sd_vae_file = os.path.join(work.name, "sd_vae.pt")
+    with torch.device("meta"):
+        vae_meta = AutoencoderKL(AutoencoderKLConfig.sd_kl_ema())
+    torch.save(init_random_(vae_meta.to_empty(device="cpu"), 1).state_dict(), sd_vae_file)
+    del vae_meta
+    stack = build_sd_stack(T2IConfig(random_init=True, vae_weights=sd_vae_file), device=dev)
     unet, vae = stack.unet, stack.vae
     n_sd = sum(p.numel() for p in unet.parameters())
     # bf16-representable inputs: the card's UNet casts them to bf16, and the
@@ -590,6 +643,23 @@ def main() -> None:
         torch.cuda.synchronize()
     vae_counts, vae_routes, vae_gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
     vae_pair_routes = kernels.gn_pair_route_counts()
+
+    # SD 2.1 (2-1-base) as the t2i CLI builds it, at the CFG batch, with the
+    # CLI's 5-token, 1024-wide pseudo conditioning (phase 14c)
+    stack21 = build_sd_stack(T2IConfig(model="sd21", random_init=True), device=dev)
+    xs21 = torch.randn(2, 64, 64, 4, generator=gen, device=dev).to(torch.bfloat16).float()
+    ctx21 = torch.from_numpy(np.concatenate([pseudo_text_embeddings([p], seq_len=5, dim=1024)
+                                             for p in ("a photo of a cat", "")])).to(dev).to(torch.bfloat16).float()
+    with torch.no_grad():
+        stack21.unet(xs21, 500, ctx21)  # cuBLAS plans, outside the timed call
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad(), Recorder(wrapper_mods) as rec_sd21:
+        t0 = time.perf_counter()
+        out_sd21 = stack21.unet(xs21, 500, ctx21)
+        torch.cuda.synchronize()
+        sd21_fwd_s = time.perf_counter() - t0
+    sd21_fwd_counts, sd21_fwd_routes, sd21_gn_routes = kernels.launch_counts(), kernels.route_counts(), kernels.gn_route_counts()
 
     # the CIFAR-10 UNet with its Winograd route on, and the same seeded weights
     # with it off
@@ -709,6 +779,11 @@ def main() -> None:
     # forward and fails unless it makes exactly these shapes
     for m, (heads, d, _) in FLOW_MODELS.items():
         sets[m] = shape_sets([("attention", (FLOW_TOKENS, FLOW_TOKENS, heads, d, "separate", None))])
+    # the same with the real text towers' conditioning (phase 14b)
+    for m, n_tok in FLOW_TOWER_TOKENS.items():
+        heads, d, _ = FLOW_MODELS[m]
+        sets[f"{m}_towers"] = shape_sets([("attention", (n_tok, n_tok, heads, d, "separate", None))])
+    sets["sd21"] = shape_sets(rec_sd21.sigs)
     n_bench = 1024 + SD3_BENCH["tokens"]
     sets["sd3_bench"] = shape_sets([("attention", (n_bench, n_bench, 24, 64, "separate", None))])
     for src, ss in sets.items():
@@ -1179,7 +1254,7 @@ def main() -> None:
     lap(5)
 
     # ---- phase 6: the SD 1.5 main path at the CLI defaults ---------------
-    cli = T2IConfig(random_init=True)
+    cli = T2IConfig(random_init=True, vae_weights=sd_vae_file)
     cond = torch.from_numpy(pseudo_text_embeddings([cli.prompt])).to(dev)
     uncond = torch.from_numpy(pseudo_text_embeddings([cli.prompt_negative])).to(dev)
     sd_runs = {}
@@ -2077,6 +2152,7 @@ def main() -> None:
         free_card()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30  # the models this script keeps
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         try:
@@ -2087,7 +2163,8 @@ def main() -> None:
         wall = time.perf_counter() - t0
         r = {"s": wall, "sampler_s": list(sampler_s), "launches": kernels.launch_counts(), "routes": kernels.route_counts(),
              "gn_routes": kernels.gn_route_counts(), "calls": flow_calls["calls"], "grad_calls": flow_calls["grad_calls"],
-             "attention_backwards": att_bwd[0], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+             "attention_backwards": att_bwd[0], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "resident_gib": resident}
         sites = FLOW_MODELS[m][2]
         check_counts(r["launches"], ("attention",), tag)
         if r["routes"]["tensor_core"] != r["calls"] * sites:
@@ -2206,6 +2283,368 @@ def main() -> None:
     lap("13d")
     print(f"[13] phase time {sum(details['phase_s'][k] for k in ('13a', '13b-c', '13d')):.1f} s", flush=True)
 
+    # ---- phase 14: the text towers, SD 2.1 and the safety checker ----------
+    import copy
+
+    from diffusion_uncertainty_torch.factory import init_normal_
+    from diffusion_uncertainty_torch.models import CLIPVisionConfig
+    from diffusion_uncertainty_torch.pipelines import safety_checker as sc_mod
+    from diffusion_uncertainty_torch.pipelines import text_encoder as te
+    from diffusion_uncertainty_torch.pipelines import text_to_image as tti
+    from diffusion_uncertainty_torch.utils.config import read_config
+
+    def host_available_gib() -> float:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) / 2**20
+        return 0.0
+
+    def png_info(path):
+        """(width, height, colour type, pixels [H, W, C] uint8) of a PNG the
+        t2i CLI wrote (zlib, filter 0 on every row)."""
+        import zlib
+
+        with open(path, "rb") as f:
+            data = f.read()
+        pos, idat, head = 8, b"", b""
+        while pos < len(data):
+            n, tag = int.from_bytes(data[pos:pos + 4], "big"), data[pos + 4:pos + 8]
+            if tag == b"IHDR":
+                head = data[pos + 8:pos + 8 + n]
+            elif tag == b"IDAT":
+                idat += data[pos + 8:pos + 8 + n]
+            pos += 12 + n
+        w, h, ctype = int.from_bytes(head[:4], "big"), int.from_bytes(head[4:8], "big"), head[9]
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * {2: 3, 6: 4}[ctype])
+        if rows[:, 0].any():
+            fail(f"{path}: a PNG row with a filter other than 0")
+        return w, h, ctype, rows[:, 1:].reshape(h, w, -1)
+
+    def t5_blocks_against_f64(t5, ids):
+        """Each T5 block on the card in float32 against the same block in
+        float64 on the card, both on the float32 run's input: rel L2 a block."""
+        rels = {}
+        with torch.no_grad():
+            x, bias = t5.shared(ids.long()), t5.position_bias(ids.shape[1])
+            for i, blk in enumerate(t5.encoder.block):
+                y = blk(x, bias, None)
+                blk64 = copy.deepcopy(blk).double()
+                rels[f"block_{i}"] = rel_l2(y, blk64(x.double(), bias.double(), None))
+                del blk64
+                x = y
+        return rels
+
+    def run_phase14() -> dict:
+        """Phase 14's records; the CLI runs' carry their launches."""
+        p14: dict = {}
+        # 14a: the three towers at full width against float32 (TF32 off)
+        f32 = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+               "float32_matmul_precision": torch.get_float32_matmul_precision()}
+        if f32["allow_tf32"] or f32["float32_matmul_precision"] != "highest":
+            fail(f"14a: TF32 is on for the towers' float32 matmuls: {f32}")
+        free_card()
+        t0 = time.perf_counter()
+        towers = te.T2ITowers("sd3", scale="full", seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        rec = {"build_s": time.perf_counter() - t0, "f32_matmuls": f32, "host_available_gib": host_available_gib()}
+        prompts = ["a photo of a cat", ""]
+        ids = {"clip": te.pseudo_token_ids(prompts, 77, te.CLIP_VOCAB, bos=te.CLIP_VOCAB - 2, eos=te.CLIP_EOS),
+               "t5": te.pseudo_token_ids(prompts, 77, te.T5_VOCAB, eos=1)}
+        ids = {k: torch.from_numpy(v).to(dev) for k, v in ids.items()}
+        for name, module, key in (("clip_l", towers.clip_l, "clip"), ("clip_g", towers.clip_g, "clip"),
+                                  ("t5", towers.t5, "t5")):
+            n_p = sum(p.numel() for p in module.parameters())
+            with torch.no_grad():
+                module(ids[key])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = module(ids[key])
+                torch.cuda.synchronize()
+                fwd_ms = (time.perf_counter() - t0) * 1e3
+            got = {"last_hidden": got} if name == "t5" else got._asdict()
+            t0 = time.perf_counter()
+            if name == "t5" and rec["host_available_gib"] < 2.5 * n_p * 4 / 2**30:
+                how, limit = "block by block against float64 on the card (the host cannot hold a float32 copy)", 1e-5
+                rels = t5_blocks_against_f64(module, ids[key])
+            else:
+                how, limit = "against float32 on the CPU (batch 1)", 1e-4
+                with torch.device("meta"):
+                    ref_model = type(module)(module.cfg)
+                ref_model.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()}, assign=True)
+                with torch.no_grad():
+                    ref = ref_model.eval()(ids[key][:1].cpu())
+                del ref_model
+                ref = {"last_hidden": ref} if name == "t5" else ref._asdict()
+                rels = {k: rel_l2(v[:1], ref[k]) for k, v in got.items()}
+            ref_s = time.perf_counter() - t0
+            print(f"[14a] {name} ({n_p / 1e6:.1f}M params, float32, batch 2, 77 tokens): {fwd_ms:.1f} ms (second call); "
+                  f"held {how} ({ref_s:.1f} s): rel L2 {json.dumps({k: float(f'{v:.3e}') for k, v in rels.items()})} "
+                  f"(limit {limit})", flush=True)
+            if max(rels.values()) > limit:
+                fail(f"14a {name}: relative L2 errors {rels} above {limit} ({how})")
+            rec[name] = {"params": n_p, "forward_ms": fwd_ms, "held": how, "rel_l2": rels, "reference_s": ref_s}
+        print(f"[14a] towers built in {rec['build_s']:.1f} s on the card (seeded, float32: CLIP N(0, 0.02), T5 at its init "
+              f"scales); float32 matmuls "
+              f"{json.dumps(f32)}; host MemAvailable {rec['host_available_gib']:.1f} GiB", flush=True)
+        p14["towers"] = rec
+        del towers, got, module
+        free_card()
+        lap("14a")
+
+        # 14b: the flow CLI with the towers, no --device
+        enc_log: list = []
+        saved_init, saved_encode = te.T2ITowers.__init__, te.T2ITowers.encode
+
+        def timed_init(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saved_init(self, *a, **kw)
+            torch.cuda.synchronize()
+            enc_log.append(("build", time.perf_counter() - t0))
+
+        def timed_encode(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c, p = saved_encode(self, *a, **kw)
+            torch.cuda.synchronize()
+            enc_log.append(("encode", time.perf_counter() - t0, tuple(c.shape), tuple(p.shape),
+                            torch.cuda.max_memory_allocated() / 2**30, self.used_pseudo_tokens))
+            return c, p
+
+        te.T2ITowers.__init__, te.T2ITowers.encode = timed_init, timed_encode
+        MMDiT.forward, FluxTransformer.forward = counted_forward(MMDiT), counted_forward(FluxTransformer)
+        op_att._Attention.backward = staticmethod(counted_att_bwd)
+        try:
+            for m, scale, post in (("sd3", "full", False), ("sd3", "full", True), ("flux", "full", True),
+                                   ("sd35", "small", True)):
+                branch = "posterior" if post else "gradient"
+                tag = f"14b {m} --text-towers {scale} {branch}"
+                argv = ["--model", m, "--random-init", "true", "--text-towers", scale, "--use-posterior", str(post).lower(),
+                        "--out-dir", os.path.join(work.name, f"towers_{m}_{branch}")]
+                enc_log.clear()
+                with Recorder(wrapper_mods) as rec14:
+                    dest, r = flow_run(tag, argv, m)
+                heads, d, sites = FLOW_MODELS[m]
+                stem = "flux" if m == "flux" else "sd3"
+                files = ["args.yaml", f"output_latent_preview_{stem}.png", f"output_latent_preview_{stem}_uc.png",
+                         "uncertainty.npz"]
+                if sorted(os.listdir(dest)) != files:
+                    fail(f"{tag}: files {sorted(os.listdir(dest))}, want {files}")
+                stamps = read_config(os.path.join(dest, "args.yaml"))
+                want = ((1, 77, 4096), (1, 768)) if m == "flux" else ((1, 154, 4096), (1, 2048))
+                encodes = [e for e in enc_log if e[0] == "encode"]
+                # pseudo token ids where no tokenizer files are on disk (the local Hugging Face cache)
+                pseudo_tokens = any(e[5] for e in encodes)
+                if (stamps["pseudo_text"], stamps["pseudo_tokens"], stamps["text_towers"]) != (False, pseudo_tokens, scale):
+                    fail(f"{tag}: args.yaml pseudo_text {stamps['pseudo_text']}, pseudo_tokens {stamps['pseudo_tokens']}, "
+                         f"text_towers {stamps['text_towers']}: want false, {pseudo_tokens} (the towers' tokenizers), {scale}")
+                if len(encodes) != 2 or any(e[2:4] != want for e in encodes):
+                    fail(f"{tag}: encodes {encodes}, want two of context / pooled shapes {want}")
+                n_tok = FLOW_TOWER_TOKENS[m]
+                sigs = {sig for name, sig in rec14.sigs if name == "attention"}
+                if sigs != {(n_tok, n_tok, heads, d, "separate", None)}:
+                    fail(f"{tag}: attention at {sigs}, want the joint length {n_tok} (phase 2's shapes)")
+                want_calls = (2 * n13 + (w13 if post else 2 * w13), 0 if post else 2 * w13)
+                if (r["calls"], r["grad_calls"]) != want_calls:
+                    fail(f"{tag}: {r['calls']} model calls ({r['grad_calls']} with autograd), want {want_calls}")
+                u = np.load(os.path.join(dest, "uncertainty.npz"))["data"]
+                if not (u.shape == (w13, 1, 64, 64, 16) and bool(np.isfinite(u).all()) and u.mean() > 0):
+                    fail(f"{tag}: maps {u.shape}, finite {bool(np.isfinite(u).all())}, mean {u.mean()}")
+                r.update(towers_build_s=sum(e[1] for e in enc_log if e[0] == "build"),
+                         encode_s=sum(e[1] for e in encodes), towers_peak_gib=max(e[4] for e in encodes),
+                         context=list(want[0]), pooled=list(want[1]), joint_tokens=n_tok, pseudo_tokens=pseudo_tokens,
+                         encode_s_each=[e[1] for e in encodes], guided_s=r["sampler_s"][0],
+                         plain_s=r["sampler_s"][1], uncertainty_mean=float(u.mean()))
+                print(f"[{tag}] towers built in {r['towers_build_s']:.2f} s, two prompts encoded in "
+                      f"{' + '.join(f'{e:.3f}' for e in r['encode_s_each'])} s with "
+                      f"{'pseudo token ids' if pseudo_tokens else 'the tokenizers of the local Hugging Face cache'} "
+                      f"(peak {r['towers_peak_gib'] - r['resident_gib']:.2f} GiB with the towers, above the models this "
+                      f"script keeps); context {want[0]}, pooled {want[1]}; guided "
+                      f"{r['guided_s']:.2f} s, plain {r['plain_s']:.2f} s, {r['s']:.1f} s in all on {card}; "
+                      f"{r['calls']} model calls, {r['launches']['attention']} attention launches at {n_tok} tokens, "
+                      f"{r['attention_backwards']} backwards; peak memory {r['peak_mem_gib']:.2f} GiB, "
+                      f"{r['peak_mem_gib'] - r['resident_gib']:.2f} above the {r['resident_gib']:.2f} GiB this script keeps",
+                      flush=True)
+                p14[f"cli_{m}_{scale}_{branch}"] = r
+        finally:
+            te.T2ITowers.__init__, te.T2ITowers.encode = saved_init, saved_encode
+            MMDiT.forward, FluxTransformer.forward = saved_fwd[MMDiT], saved_fwd[FluxTransformer]
+            op_att._Attention.backward = staticmethod(saved_att_bwd)
+        lap("14b")
+
+        # 14c: SD 2.1, the full-width forward against float32, then the CLI
+        check_counts(sd21_fwd_counts, SD_UNET_PATH, "14c SD 2.1 forward")
+        if {k: sd21_fwd_counts[k] for k in SD_UNET_PATH} != {k: sd_fwd_counts[k] for k in SD_UNET_PATH}:
+            fail(f"14c SD 2.1 forward: launches {sd21_fwd_counts}, want SD 1.5's block program {sd_fwd_counts}")
+        check_tc_routes(sd21_fwd_routes, "14c SD 2.1 forward")
+        check_gn_one_launch(sd21_gn_routes, "14c SD 2.1 forward")
+        if not bool(torch.isfinite(out_sd21).all()):
+            fail("14c SD 2.1 forward: non-finite output")
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            cpu21 = SDUNet(stack21.mcfg)
+        cpu21.load_state_dict({k: v.float().cpu() for k, v in stack21.unet.state_dict().items()}, assign=True)
+        with torch.no_grad():
+            ref21 = cpu21.eval()(xs21[:1].cpu(), 500, ctx21[:1].cpu())
+        del cpu21
+        cpu_s = time.perf_counter() - t0
+        rel21 = rel_l2(out_sd21[:1], ref21)
+        with torch.no_grad(), PlainKernels(wrapper_mods, plains):
+            plain21 = rel_l2(stack21.unet(xs21[:1], 500, ctx21[:1]), ref21)
+        n21 = sum(p.numel() for p in stack21.unet.parameters())
+        print(f"[14c] SD 2.1 UNet forward ({n21 / 1e6:.1f}M params, bf16, batch 2, t=500, 5 x 1024 context): "
+              f"{sd21_fwd_s * 1e3:.1f} ms; image 0 vs float32 CPU ({cpu_s:.1f} s): rel L2 {rel21:.3e} (the plain versions "
+              f"{plain21:.3e}; limits 2e-2 and plain + 1e-3); launches a forward {json.dumps(sd21_fwd_counts)}, attention "
+              f"routes {json.dumps(sd21_fwd_routes)}", flush=True)
+        if not (rel21 <= 2e-2 and rel21 <= plain21 + 1e-3):
+            fail(f"14c SD 2.1 forward: relative L2 error {rel21} (plain versions {plain21}; limits 2e-2 and plain + 1e-3)")
+        p14["sd21_forward"] = {"params": n21, "forward_ms": sd21_fwd_s * 1e3, "rel_l2": rel21, "plain_rel_l2": plain21,
+                               "launches_per_forward": sd21_fwd_counts}
+        pipe_s: list = []
+        saved_call = tti.TextToImageUncertaintyPipeline.__call__
+
+        def timed_call(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved_call(self, *a, **kw)
+            torch.cuda.synchronize()
+            pipe_s.append(time.perf_counter() - t0)
+            return out
+
+        def sd_run(tag, argv, path, extra_files=()):
+            """t2i.main(argv) (SD 1.x) between zeroed and read counters."""
+            pipe_s.clear()
+            free_card()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 2**30
+            kernels.reset_launch_counts()
+            tti.TextToImageUncertaintyPipeline.__call__ = timed_call
+            t0 = time.perf_counter()
+            try:
+                t2i.main(argv)
+            finally:
+                tti.TextToImageUncertaintyPipeline.__call__ = saved_call
+            torch.cuda.synchronize()
+            r = {"s": time.perf_counter() - t0, "pipeline_s": list(pipe_s), "launches": kernels.launch_counts(),
+                 "routes": kernels.route_counts(), "gn_routes": kernels.gn_route_counts(),
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "resident_gib": resident}
+            check_counts(r["launches"], path, tag)
+            if r["routes"]["cuda_core"] or r["routes"]["tensor_core"] <= 0:
+                fail(f"{tag}: an attention launch left the tensor-core route: {r['routes']}")
+            dest = os.path.join(argv[argv.index("--out-dir") + 1], "0")
+            files = sorted(["args.yaml", "output_sd.png", "output_sd_uc.png", "uncertainty.npz", *extra_files])
+            if sorted(os.listdir(dest)) != files:
+                fail(f"{tag}: files {sorted(os.listdir(dest))}, want {files}")
+            u = np.load(os.path.join(dest, "uncertainty.npz"))["data"]
+            if not (u.shape == (1, 20, 64, 64, 4) and bool(np.isfinite(u).all()) and u.mean() > 0):
+                fail(f"{tag}: maps {u.shape}, finite {bool(np.isfinite(u).all())}, mean {u.mean()}")
+            r.update(guided_s=pipe_s[0], plain_s=pipe_s[1], uncertainty_mean=float(u.mean()))
+            return dest, r
+
+        for post, vae_file in ((False, None), (True, None), (True, sd_vae_file)):
+            branch = "posterior" if post else "gradient"
+            tag = f"14c sd21 {branch}" + (" --vae-weights" if vae_file else "")
+            argv = ["--model", "sd21", "--random-init", "true", "--use-posterior", str(post).lower(),
+                    "--out-dir", os.path.join(work.name, f"sd21_{branch}_{bool(vae_file)}")]
+            dest, r = sd_run(tag, argv + (["--vae-weights", vae_file] if vae_file else []),
+                             SD_PATH if vae_file else SD_UNET_PATH)
+            pngs = [png_info(os.path.join(dest, n))[:3] for n in ("output_sd_uc.png", "output_sd.png")]
+            want_png = (512, 512, 2) if vae_file else (64, 64, 6)  # an RGB image, or the RGBA latent grid
+            pairs, wide = (2 * VAE_PAIRS, 2) if vae_file else (0, 0)
+            if pngs != [want_png] * 2 or r["gn_routes"]["pair"] != pairs or r["routes"]["wide"] != wide:
+                fail(f"{tag}: PNGs (width, height, colour type) {pngs}, want {want_png}; GroupNorm routes {r['gn_routes']} "
+                     f"(want {pairs} pairs), attention routes {r['routes']} (want {wide} wide)")
+            if read_config(os.path.join(dest, "args.yaml"))["pseudo_text"] is not True:
+                fail(f"{tag}: args.yaml must stamp pseudo_text: true")
+            print(f"[{tag}] (512x512, 20 steps, CFG 7.5, window [0, 20), p 0.95, M=5, bf16, 5 x 1024 pseudo context): "
+                  f"guided {r['guided_s']:.2f} s per image, plain {r['plain_s']:.2f} s, {r['s']:.1f} s in all on {card}; "
+                  f"PNGs {pngs[0]}; kernels {json.dumps(r['launches'])}; GroupNorm routes {json.dumps(r['gn_routes'])}; "
+                  f"peak memory {r['peak_mem_gib'] - r['resident_gib']:.2f} GiB above the {r['resident_gib']:.2f} this script "
+                  f"keeps", flush=True)
+            p14[f"sd21_{branch}" + ("_decode" if vae_file else "")] = r
+        lap("14c")
+
+        # 14d: the SD 1.5 CLI with --safety-checker-weights (a seeded random
+        # ViT-L/14 checker); a calibration run that flags nothing sets concept
+        # 0 between the guided and the plain image, so that one flags
+        with torch.device("meta"):
+            checker = sc_mod.SafetyChecker(CLIPVisionConfig.vit_l_14())
+        checker = init_normal_(checker.to_empty(device=dev), torch.Generator(device=dev).manual_seed(SEED + 14))
+        checker = checker.eval().requires_grad_(False)
+        with torch.no_grad():
+            checker.concept_embeds_weights.fill_(2.0)  # above any cosine: nothing flags
+            checker.special_care_embeds_weights.fill_(2.0)
+        ckpt = os.path.join(work.name, "safety_checker.pt")
+        seen: list = []
+        saved_run = sc_mod.run_safety_checker
+
+        def seeing(chk, images, adjustment=0.0):
+            seen.append(images.detach().clone())
+            return saved_run(chk, images, adjustment)
+
+        def embeds(model, images):
+            with torch.no_grad():
+                return model(sc_mod.clip_preprocess(images, 224)).float()
+
+        base = ["--random-init", "true", "--use-posterior", "true", "--vae-weights", sd_vae_file,
+                "--safety-checker-weights", ckpt]
+        sc_mod.run_safety_checker = seeing
+        try:
+            torch.save({k: v.cpu() for k, v in checker.state_dict().items()}, ckpt)
+            dest0, r0 = sd_run("14d calibration", base + ["--out-dir", os.path.join(work.name, "checker0")], SD_PATH,
+                               ("nsfw_flags.yaml",))
+            with open(os.path.join(dest0, "nsfw_flags.yaml")) as f:
+                if f.read() != "guided:\n- false\noriginal:\n- false\n":
+                    fail("14d calibration: an image flagged with every threshold above 1")
+            e_g, e_o = (F.normalize(embeds(checker, img), dim=-1)[0] for img in seen)
+            margin = float((e_g - e_o).norm()) / 2
+            if margin < 1e-4:
+                fail(f"14d: the guided and the plain image embed {2 * margin:.2e} apart: too close to split")
+            direction = (e_g - e_o) / (2 * margin)
+            with torch.no_grad():
+                checker.concept_embeds[0] = direction
+                checker.concept_embeds_weights[0] = float((e_g + e_o) @ direction) / 2
+            torch.save({k: v.cpu() for k, v in checker.state_dict().items()}, ckpt)
+            seen.clear()
+            dest, r = sd_run("14d safety checker", base + ["--out-dir", os.path.join(work.name, "checker1")], SD_PATH,
+                             ("nsfw_flags.yaml",))
+        finally:
+            sc_mod.run_safety_checker = saved_run
+        with open(os.path.join(dest, "nsfw_flags.yaml")) as f:
+            flags_text = f.read()
+        if flags_text != "guided:\n- true\noriginal:\n- false\n":
+            fail(f"14d: nsfw_flags.yaml {flags_text!r}, want the guided image flagged and the plain one not")
+        black = [bool((png_info(os.path.join(dest, n))[3] == 0).all()) for n in ("output_sd_uc.png", "output_sd.png")]
+        if black != [True, False]:
+            fail(f"14d: images black {black}: want the flagged guided image black, the plain one not")
+        with torch.device("meta"):
+            cpu_checker = sc_mod.SafetyChecker(CLIPVisionConfig.vit_l_14())
+        cpu_checker.load_state_dict({k: v.cpu() for k, v in checker.state_dict().items()}, assign=True)
+        cpu_checker.eval()
+        emb_rel, cpu_flags = [], []
+        for img in seen:
+            emb_rel.append(rel_l2(embeds(checker, img), embeds(cpu_checker, img.cpu())))
+            cpu_flags.append(bool(sc_mod.safety_scores(cpu_checker, sc_mod.clip_preprocess(img.cpu(), 224))[0][0]))
+        del cpu_checker
+        print(f"[14d] SD 1.5 CLI --safety-checker-weights (ViT-L/14 checker, 304.0M params, float32; posterior, "
+              f"--vae-weights): nsfw_flags.yaml {flags_text!r}; flagged image black; image embeds vs float32 CPU rel L2 "
+              f"{[float(f'{e:.3e}') for e in emb_rel]} (limit 1e-4), CPU flags {cpu_flags}; half the embed gap "
+              f"{margin:.3e}; guided {r['guided_s']:.2f} s, {r['s']:.1f} s in all; kernels {json.dumps(r['launches'])}",
+              flush=True)
+        if max(emb_rel) > 1e-4 or cpu_flags != [True, False]:
+            fail(f"14d: image embeds rel L2 {emb_rel} (limit 1e-4), CPU flags {cpu_flags} (the CLI's [True, False])")
+        r.update(embeds_rel_l2=emb_rel, cpu_flags=cpu_flags, half_gap=margin)
+        p14["safety_calibration"], p14["safety_checker"] = r0, r
+        lap("14d")
+        return p14
+
+    phase14 = run_phase14()
+    details.update(phase14=phase14)
+    print(f"[14] phase time {sum(details['phase_s'][k] for k in ('14a', '14b', '14c', '14d')):.1f} s", flush=True)
+
+
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
@@ -2213,7 +2652,7 @@ def main() -> None:
 
     path_runs = (*sd_runs.values(), *cifar_runs.values(), *(r for r in metric_runs.values() if "launches" in r),
                  uvit_runs["main path"], guided_runs["guided"], guided_runs["dpm"], *phase12.values(),
-                 *(r for k, r in phase13.items() if k.startswith("cli_")))
+                 *(r for k, r in phase13.items() if k.startswith("cli_")), *(r for r in phase14.values() if "launches" in r))
     launches = {k: adm_launches[k] + sum(r["launches"][k] for r in path_runs) for k in names}
     entries = []
     for k, (src, replaces) in KERNELS.items():

@@ -29,11 +29,26 @@ exactly:
   output projection or MLP);
 * ``flux_state_dict_from_flax`` inverts ``convert_flux`` (diffusers
   ``FluxTransformer2DModel`` layout), undoing its token permutation of the
-  ``x_embedder`` rows and ``proj_out`` columns.
+  ``x_embedder`` rows and ``proj_out`` columns;
+* ``clip_text_state_dict_from_flax``, ``t5_state_dict_from_flax`` and
+  ``clip_vision_state_dict_from_flax`` invert ``convert_clip_text``,
+  ``convert_t5_encoder`` and ``convert_clip_vision`` (transformers
+  ``CLIPTextModel[WithProjection]``, ``T5EncoderModel`` and
+  ``CLIPVisionModelWithProjection`` layouts);
+* ``safety_checker_state_dict_from_flax`` inverts ``convert_safety_checker``
+  (diffusers ``StableDiffusionSafetyChecker``: the vision tower under the
+  doubled ``vision_model.vision_model`` prefix, ``visual_projection`` and the
+  concept / special-care heads).
+
+The text and vision tower converters are strict as JAX's are: a missing
+parameter raises ``KeyError("missing ...")`` and a leftover one
+``KeyError("extra ...")``, so weights read from a file
+(``pipelines.text_encoder.T2ITowers.load``) never load partly.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
@@ -48,6 +63,11 @@ __all__ = [
     "uvit_state_dict_from_flax",
     "mmdit_state_dict_from_flax",
     "flux_state_dict_from_flax",
+    "clip_text_state_dict_from_flax",
+    "t5_state_dict_from_flax",
+    "clip_vision_state_dict_from_flax",
+    "safety_checker_state_dict_from_flax",
+    "load_any_state_dict",
     "flux_token_permutation",
     "legacy_qkv_permutation",
 ]
@@ -498,3 +518,138 @@ def flux_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
         out.dense(f"{t}.proj_mlp", blk["proj_mlp"])
         out.dense(f"{t}.proj_out", blk["proj_out"])
     return out.sd
+
+
+class _Leaves:
+    """JAX parameters (with or without the ``{"params": ...}`` wrapper) as
+    '/'-joined leaves, each taken once into an ``_Out``; ``finish`` raises on
+    a leaf never taken."""
+
+    def __init__(self, params):
+        self.flat: Dict[str, np.ndarray] = {}
+        self._walk(params.get("params", params), "")
+        self.out = _Out()
+
+    def _walk(self, tree, pfx: str) -> None:
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                self._walk(v, f"{pfx}{k}/")
+            else:
+                self.flat[f"{pfx}{k}"] = v
+
+    def leaf(self, path: str):
+        if path not in self.flat:
+            raise KeyError(f"missing flax parameter: {path}")
+        return self.flat.pop(path)
+
+    def put(self, key: str, path: str) -> None:
+        self.out.put(key, self.leaf(path))
+
+    def dense(self, key: str, path: str, bias: bool = True) -> None:
+        self.out.put(f"{key}.weight", np.asarray(self.leaf(f"{path}/kernel")).T)
+        if bias:
+            self.put(f"{key}.bias", f"{path}/bias")
+
+    def norm(self, key: str, path: str) -> None:
+        self.put(f"{key}.weight", f"{path}/scale")
+        self.put(f"{key}.bias", f"{path}/bias")
+
+    def clip_layer(self, key: str, path: str) -> None:
+        self.norm(f"{key}.layer_norm1", f"{path}/layer_norm1")
+        self.norm(f"{key}.layer_norm2", f"{path}/layer_norm2")
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            self.dense(f"{key}.self_attn.{n}", f"{path}/self_attn/{n}")
+        self.dense(f"{key}.mlp.fc1", f"{path}/fc1")
+        self.dense(f"{key}.mlp.fc2", f"{path}/fc2")
+
+    def finish(self) -> Dict[str, torch.Tensor]:
+        if self.flat:
+            raise KeyError(f"extra flax parameters: {sorted(self.flat)[:5]}")
+        return self.out.sd
+
+
+def clip_text_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPTextEncoder`` params -> transformers ``CLIPTextModel`` state
+    dict, with ``text_projection`` when ``cfg.projection_dim > 0``
+    (``convert_clip_text`` read backwards)."""
+    P = _Leaves(params)
+    t = "text_model"
+    P.put(f"{t}.embeddings.token_embedding.weight", "token_embedding/embedding")
+    P.put(f"{t}.embeddings.position_embedding.weight", "position_embedding")
+    for i in range(cfg.num_layers):
+        P.clip_layer(f"{t}.encoder.layers.{i}", f"layer_{i}")
+    P.norm(f"{t}.final_layer_norm", "final_layer_norm")
+    if cfg.projection_dim > 0:
+        P.dense("text_projection", "text_projection", bias=False)
+    return P.finish()
+
+
+def t5_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``T5Encoder`` params -> transformers ``T5EncoderModel`` state dict
+    without the ``encoder.embed_tokens`` alias (``convert_t5_encoder`` read
+    backwards; the relative-position table goes to block 0)."""
+    P = _Leaves(params)
+    P.put("shared.weight", "token_embedding/embedding")
+    P.put("encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight", "relative_attention_bias")
+    for i in range(cfg.num_layers):
+        b, p = f"encoder.block.{i}", f"block_{i}"
+        P.put(f"{b}.layer.0.layer_norm.weight", f"{p}/attn_norm/weight")
+        for n in ("q", "k", "v", "o"):
+            P.dense(f"{b}.layer.0.SelfAttention.{n}", f"{p}/attention/{n}", bias=False)
+        P.put(f"{b}.layer.1.layer_norm.weight", f"{p}/ff_norm/weight")
+        for n in ("wi_0", "wi_1", "wo") if cfg.feed_forward_proj == "gated-gelu" else ("wi", "wo"):
+            P.dense(f"{b}.layer.1.DenseReluDense.{n}", f"{p}/{n}", bias=False)
+    P.put("encoder.final_layer_norm.weight", "final_layer_norm/weight")
+    return P.finish()
+
+
+def clip_vision_state_dict_from_flax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPVisionEncoder`` params -> transformers
+    ``CLIPVisionModel[WithProjection]`` state dict (``convert_clip_vision``
+    read backwards; the patch conv back to [D, 3, p, p])."""
+    P = _Leaves(params)
+    v = "vision_model"
+    P.put(f"{v}.embeddings.class_embedding", "class_embedding")
+    P.out.put(f"{v}.embeddings.patch_embedding.weight", np.asarray(P.leaf("patch_embedding/kernel")).transpose(3, 2, 0, 1))
+    P.put(f"{v}.embeddings.position_embedding.weight", "position_embedding")
+    P.norm(f"{v}.pre_layrnorm", "pre_layrnorm")
+    for i in range(cfg.num_layers):
+        P.clip_layer(f"{v}.encoder.layers.{i}", f"layer_{i}")
+    P.norm(f"{v}.post_layernorm", "post_layernorm")
+    if cfg.projection_dim > 0:
+        P.dense("visual_projection", "visual_projection", bias=False)
+    return P.finish()
+
+
+SAFETY_HEADS = ("concept_embeds", "special_care_embeds", "concept_embeds_weights", "special_care_embeds_weights")
+
+
+def safety_checker_state_dict_from_flax(sc, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``SafetyCheckerParams`` (the vision tower with its projection and
+    the four heads) -> diffusers ``StableDiffusionSafetyChecker`` state dict
+    (``convert_safety_checker`` read backwards)."""
+    tower = clip_vision_state_dict_from_flax(sc.vision, cfg)
+    sd = {k if k == "visual_projection.weight" else f"vision_model.{k}": w for k, w in tower.items()}
+    sd.update({name: torch.from_numpy(np.array(getattr(sc, name), dtype=np.float32)) for name in SAFETY_HEADS})
+    return sd
+
+
+def load_any_state_dict(path) -> Dict[str, torch.Tensor]:
+    """A file, or a diffusers / transformers model folder (every
+    ``*.safetensors``, else every ``*.bin`` / ``*.pt`` / ``*.pth``), as one
+    {key: float32 CPU tensor} dict (JAX ``load_any_state_dict``)."""
+
+    def load(f: Path) -> dict:
+        if f.suffix == ".safetensors":
+            from safetensors.torch import load_file
+
+            return load_file(str(f))
+        obj = torch.load(f, map_location="cpu", weights_only=True)
+        return obj["state_dict"] if isinstance(obj.get("state_dict"), dict) else obj
+
+    p = Path(path)
+    files = [p] if p.is_file() else sorted(p.glob("*.safetensors")) or [
+        f for ext in ("*.bin", "*.pt", "*.pth") for f in sorted(p.glob(ext))]
+    if not files:
+        raise FileNotFoundError(f"no weight files under {p}")
+    return {k: v.float() for f in files for k, v in load(f).items()}

@@ -66,6 +66,12 @@ class SDUNetConfig:
         return SDUNetConfig()
 
     @staticmethod
+    def sd21() -> "SDUNetConfig":
+        """stabilityai/stable-diffusion-2-1-base UNet (865.9M parameters):
+        1024-wide context, 64-wide heads, linear transformer projections."""
+        return SDUNetConfig(cross_attention_dim=1024, num_attention_heads=(5, 10, 20, 20), use_linear_projection=True)
+
+    @staticmethod
     def tiny() -> "SDUNetConfig":
         """Small test configuration (as the JAX package's)."""
         return SDUNetConfig(

@@ -8,6 +8,8 @@
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model adm128_grad --batch 40
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model sd3 --batch 2   # also sd35, flux (--batch 1)
     python -m diffusion_uncertainty_torch.scripts.profile_forward --model sd3_grad --batch 10   # also flux_grad --batch 5
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model sd21 --batch 2   # also 10, the folded M=5 batch
+    python -m diffusion_uncertainty_torch.scripts.profile_forward --model t5xxl --batch 1   # also clip_g, clip_l
     PYTHONPATH=<another checkout> python <this file> --model vae --batch 1
 
 No JAX counterpart (the JAX package's profiles are TPU traces). Builds the
@@ -33,7 +35,11 @@ them (``build_flow_stack``, bf16) at a 64x64x16 latent with 16 pseudo-text
 tokens (1040 joint tokens), t=500, Flux's guidance 7500; batch 2 is SD3's
 CFG batch, 10 / 5 the folded M=5 ensemble; ``sd3_grad`` / ``flux_grad``: a
 forward and the backward of a scalar of its velocity to the float32 input,
-the unit of work of the flow-matching gradient branch), times ``ITERS`` forwards on the host
+the unit of work of the flow-matching gradient branch; ``sd21``: the SD 2.1
+UNet as the CLI builds it, bf16, at a 64x64 latent with the CLI's 5-token,
+1024-wide pseudo context, t=500; ``t5xxl`` / ``clip_g`` / ``clip_l``: the
+SD3 / Flux text towers (T5-XXL, CLIP-bigG, CLIP-L with projection) in
+float32 with seeded random weights on 77 token ids), times ``ITERS`` forwards on the host
 clock (ending in a synchronize), then traces ``TRACE`` more with
 ``torch.profiler`` and prints the device time
 per forward by kernel family and the largest kernels, the device's busy
@@ -56,7 +62,7 @@ from diffusion_uncertainty_torch.pipelines import pseudo_text_embeddings
 from diffusion_uncertainty_torch.scripts.generate_t2i_guided import Config, _build, build_sd_stack, init_random_
 
 MODELS = ("sd15 | adm128 | cifar10 | vae | uvit256 | uvit512 | adm128_classifier | adm128_grad | sd3 | sd35 | flux | "
-          "sd3_grad | flux_grad")
+          "sd3_grad | flux_grad | sd21 | t5xxl | clip_g | clip_l")
 ITERS = 10  # forwards timed on the host clock
 TRACE = 3  # forwards traced by torch.profiler
 # kernel-name substrings -> family, first match wins
@@ -96,6 +102,24 @@ def build(model: str, batch: int, device, winograd: bool = False):
         x = torch.randn(batch, 64, 64, 4, generator=gen, device=device)
         ctx = torch.from_numpy(pseudo_text_embeddings(["a photo of a cat"] * batch)).to(device)
         return (lambda: stack.unet(x, 500, ctx)), sum(p.numel() for p in stack.unet.parameters())
+    if model == "sd21":
+        stack = build_sd_stack(Config(model="sd21", random_init=True), device=device)
+        x = torch.randn(batch, 64, 64, 4, generator=gen, device=device)
+        ctx = torch.from_numpy(pseudo_text_embeddings(["a photo of a cat"] * batch, seq_len=5, dim=1024)).to(device)
+        return (lambda: stack.unet(x, 500, ctx)), sum(p.numel() for p in stack.unet.parameters())
+    if model in ("t5xxl", "clip_g", "clip_l"):
+        from diffusion_uncertainty_torch.factory import init_normal_
+        from diffusion_uncertainty_torch.models import CLIPTextConfig, CLIPTextEncoder, T5Config, T5Encoder
+        from diffusion_uncertainty_torch.models.t5_text import init_t5_
+
+        make = {"t5xxl": lambda: T5Encoder(T5Config.v1_1_xxl()),
+                "clip_g": lambda: CLIPTextEncoder(CLIPTextConfig.vit_bigg_14()),
+                "clip_l": lambda: CLIPTextEncoder(CLIPTextConfig.vit_l_14_projected())}[model]
+        with torch.device("meta"):
+            net = make()
+        net = (init_t5_ if model == "t5xxl" else init_normal_)(net.to_empty(device=device), gen).eval()
+        ids = torch.randint(1, 32000, (batch, 77), generator=gen, device=device)
+        return (lambda: net(ids)), sum(p.numel() for p in net.parameters())
     if model == "adm128":
         cfg = ADMUNetConfig.imagenet128()
         with torch.device(device):

@@ -3,7 +3,8 @@ CLI, float32 on the CPU: ``--model sd3-tiny`` and ``--model flux-tiny`` in
 both guidance branches, on the same weights (a diffusers-layout state dict
 both CLIs load with ``--unet-weights``) with JAX's draws replayed: the file
 names, ``uncertainty.npz``, the saved images and ``args.yaml``; the
-16-channel VAEs' decode; the exits of the settings that are not ported; the
+16-channel VAEs' decode; the exits of the settings that are not ported and
+the text towers' entry; the
 card as the default device; and that the slice's modules import no JAX."""
 
 import dataclasses
@@ -117,13 +118,32 @@ def test_16_channel_vae_decode_matches_jax(which):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("argv,item", [(["--model", "sd3", "--text-towers", "small"], "item 20"),
-                                       (["--model", "flux", "--text-towers", "full"], "item 20"),
+class _Reached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv,item", [(["--model", "sd3", "--text-towers", "small"], ("sd3", "small")),
+                                       (["--model", "flux", "--text-towers", "full"], ("flux", "full")),
                                        (["--model", "sd35", "--streamed", "true"], "item 16"),
                                        (["--model", "sd15", "--streamed", "true"], "item 16")],
                          ids=["sd3_small_towers", "flux_full_towers", "sd35_streamed", "sd15_streamed"])
-def test_unported_settings_exit_naming_their_item(argv, item):
-    """Never accepted and dropped: each exits before a model is built."""
+def test_unported_settings_exit_naming_their_item(monkeypatch, argv, item):
+    """Never accepted and dropped: the streamed executor exits before a
+    model is built; ``--text-towers small|full`` on a full model (once item
+    20) reaches ``T2ITowers`` with its family and scale before the
+    transformer is built (stopped there: the towers are not built here)."""
+    if isinstance(item, tuple):
+        import diffusion_uncertainty_torch.pipelines.text_encoder as tte
+
+        def towers(family, scale, **kw):
+            raise _Reached(family, scale, kw["device"].type)
+
+        monkeypatch.setattr(tte, "T2ITowers", towers)
+        monkeypatch.setattr(tcli, "_build", lambda *a: pytest.fail("the transformer was built before the towers"))
+        with pytest.raises(_Reached) as got:
+            tcli.main(argv + ["--random-init", "true", "--device", "cpu"])
+        assert got.value.args == (*item, "cpu")
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         tcli.main(argv + ["--random-init", "true", "--device", "cpu"])
 
