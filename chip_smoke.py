@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and hold its kernels to account.
 
-    python3 chip_smoke.py [--details PATH]   # one card, about twelve minutes
+    python3 chip_smoke.py [--details PATH]   # one card, about nine minutes
 
 Phases (a failure in any of them ends the run with a non-zero exit):
 
@@ -270,13 +270,31 @@ Phases (a failure in any of them ends the run with a non-zero exit):
    (black) and not the plain one (``nsfw_flags.yaml``); the checker's image
    embeds on the card within rel L2 1e-4 of float32 on the CPU, and the
    CPU's flags equal to the CLI's.
+15. ADM-128's other samplers and the timing and grid CLIs (the factory's
+   ``imagenet128`` bundle, seeded random bf16 weights, batch 8). (a)
+   ``sample_ddpm`` with ``learned_range`` on the model's raw 6-channel
+   output, 10 steps, ``uncertainty_centered`` (M=5, folded) on the last 2,
+   and (b) ``sample_kdpm2``, 10 steps: 12 and 20 model calls; each chain
+   (sample, and 15a's maps) held to the same chain in float32 (the same
+   weights, the plain versions, the same injected noise): rel L2 at most
+   1e-3 above the same bf16 chain through the plain versions (the form of
+   phase 5). (c) ``measure_times`` with no ``--device``, the ``bench.py``
+   protocol (zigzag M=5 x3 on [40, 50) of 50 steps, ``--repeats 1``),
+   ``--baseline kdpm2`` and then ``ddim``: both records printed, two records
+   in ``times.json`` naming the card. (d) ``uncertainty_benchmark`` with no
+   ``--device`` (the six estimator methods, 8 images, 20 steps, window [16,
+   20)): six rows with a finite mean map and images/s above 0; then one
+   short dataset-CLI run and ``summary_experiments``, whose one row must
+   name it. Each run holds the ADM path: every kernel launched, attention
+   on the tensor-core route, GroupNorm on one launch, 4 avg-pool and 4
+   interleave launches an ADM call.
 
 Every forward of phases 3, 5, 7, 9a, 10 and 11a must launch each kernel of its
 model; each main path (phase 4, each run of phase 6, each run of phase 8, the
 AUSE, NLL and dataset-CLI runs of phase 9, phase 10b, phases 11b and 11c,
-each run of phase 12 and each CLI run of phases 13 and 14) sets the launch
-counters to 0 just before and reads them just after, and fails if a kernel of
-its path never launched. Each phase prints its seconds. The last two lines are the kernels
+each run of phase 12, each CLI run of phases 13 and 14, and each run of
+phase 15) sets the launch counters to 0 just before and reads them just
+after, and fails if a kernel of its path never launched. Each phase prints its seconds. The last two lines are the kernels
 JSON (``launches``: the sum over the main-path runs; avg_pool_2x2 and
 interleave_2x also carry
 ``device_only_ms``, ``host_us``, ``forms``, the form their sums take, and
@@ -491,6 +509,193 @@ def shape_sets(calls):
     for name, sig in calls:
         sets[FAMILY.get(name, name)].add(sig)
     return {k: sorted(v, key=str) for k, v in sets.items()}
+
+
+# phase 15: ADM-128's samplers and the timing and grid CLIs. 15a: sample_ddpm
+# (learned_range) with uncertainty_centered M=5 on the last 2 of 10 steps;
+# 15b: sample_kdpm2, 10 steps (2 model calls a step)
+P15_STEPS, P15_WINDOW, P15_M = 10, 2, 5
+P15_LIMIT = 1e-3  # rel L2 above the plain versions', both against float32 (the form of phase 5)
+
+
+def phase15(dev, card: str, wrapper_mods: dict, plains: dict, lap) -> dict:
+    """Phase 15's records; each main-path run carries its launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from diffusion_uncertainty_torch import kernels
+    from diffusion_uncertainty_torch.diffusion import SamplerConfig, sample_ddpm
+    from diffusion_uncertainty_torch.diffusion.kdpm2 import KDPM2Config, sample_kdpm2
+    from diffusion_uncertainty_torch.factory import instantiate_model_scheduler
+    from diffusion_uncertainty_torch.models import ADMUNet
+    from diffusion_uncertainty_torch.scripts import generate_dataset_score_uncertainty as dataset_cli
+    from diffusion_uncertainty_torch.scripts import generate_starting_points, measure_times, summary_experiments
+    from diffusion_uncertainty_torch.scripts import uncertainty_benchmark
+    from diffusion_uncertainty_torch.uncertainty import EstimatorConfig, make_estimator
+    from diffusion_uncertainty_torch.utils import TorchNoise, paths
+
+    p15: dict = {}
+    calls = [0]  # ADM-128 calls (forward pre-hooks)
+
+    def hooked(bundle):
+        bundle.model.register_forward_pre_hook(lambda module, args: calls.__setitem__(0, calls[0] + 1))
+        return bundle
+
+    def counted(tag, fn):
+        """fn() between zeroed and read counters; fails unless every ADM
+        kernel launched and attention stayed on the tensor-core route."""
+        calls[0] = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        r = {"s": time.perf_counter() - t0, "launches": kernels.launch_counts(), "routes": kernels.route_counts(),
+             "gn_routes": kernels.gn_route_counts(), "adm_calls": calls[0]}
+        for name in ADM_PATH:
+            if r["launches"][name] <= 0:
+                fail(f"{tag}: kernel {name} was never launched")
+        if r["routes"]["cuda_core"] or r["routes"]["tensor_core"] <= 0 or r["gn_routes"]["pair"]:
+            fail(f"{tag}: attention routes {r['routes']}, GroupNorm routes {r['gn_routes']}: want tensor-core and one launch")
+        for name in ("avg_pool_2x2", "interleave_2x"):
+            if r["launches"][name] != ADM_RESAMPLE * calls[0]:
+                fail(f"{tag}: {r['launches'][name]} {name} launches in {calls[0]} ADM calls, want {ADM_RESAMPLE} a call")
+        print(f"[{tag}] kernels {json.dumps(r['launches'])}; {calls[0]} ADM calls; attention routes "
+              f"{json.dumps(r['routes'])}", flush=True)
+        return out, r
+
+    def plain_run(fn):
+        """fn() with every kernel wrapper replaced by its plain version."""
+        kernels.reset_launch_counts()
+        with PlainKernels(wrapper_mods, plains):
+            out = fn()
+        torch.cuda.synchronize()
+        if any(kernels.launch_counts().values()):
+            fail("phase 15: a plain-version run launched a kernel")
+        return out
+
+    # 15a-b: the samplers on ADM-128 at full width (seeded random bf16
+    # weights, the model's raw 6-channel output), held to the same chain with
+    # the plain versions and to float32 (the same weights, the plain versions)
+    bundle = hooked(instantiate_model_scheduler("imagenet128", random_init=True, device=dev))
+    model, sched = bundle.model, bundle.schedule
+    with torch.device("meta"):
+        model32 = ADMUNet(model.cfg)
+    model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()}, assign=True)
+    model32 = model32.to(memory_format=torch.channels_last).eval().requires_grad_(False)
+    g15 = torch.Generator(device=dev).manual_seed(SEED + 15)
+    x_T = torch.randn(ADM_BATCH, 128, 128, 3, generator=g15, device=dev)
+    y = torch.randint(0, 1000, (ADM_BATCH,), generator=g15, device=dev)
+    scfg = SamplerConfig(num_inference_steps=P15_STEPS, after_step=P15_STEPS - P15_WINDOW, num_steps_uc=P15_WINDOW)
+    est = make_estimator(EstimatorConfig(name="uncertainty_centered", M=P15_M))
+
+    def ddpm(m):
+        return sample_ddpm(lambda x, t, nz: m(x, t, y), sched, x_T, TorchNoise(SEED + 151, dev), scfg,
+                           variance_type="learned_range", estimator=est,
+                           estimator_model_fn=lambda x, t, nz: m(x, t, y)[..., :3])
+
+    def kdpm2(m):
+        return sample_kdpm2(lambda x, t, nz: m(x, t, y)[..., :3], sched, x_T, TorchNoise(SEED + 152, dev),
+                            KDPM2Config(num_inference_steps=P15_STEPS))
+
+    with torch.no_grad():  # cuDNN plans at both batches, outside the counted runs
+        model(x_T, 999, y)
+        model(x_T.repeat(P15_M, 1, 1, 1), 999, y.repeat(P15_M))
+    for tag, run, n_calls in (("15a", ddpm, P15_STEPS + P15_WINDOW), ("15b", kdpm2, 2 * P15_STEPS)):
+        res, r = counted(tag, lambda: run(model))
+        if r["adm_calls"] != n_calls:
+            fail(f"{tag}: {r['adm_calls']} model calls, want {n_calls}")
+        res_p = plain_run(lambda: run(model))
+        t0 = time.perf_counter()
+        res_f = plain_run(lambda: run(model32))
+        f32_s = time.perf_counter() - t0
+        pairs = {"sample": (res.sample, res_p.sample, res_f.sample)}
+        if tag == "15a":
+            pairs["maps"] = (res.uncertainty, res_p.uncertainty, res_f.uncertainty)
+            if tuple(res.uncertainty.shape) != (P15_WINDOW, ADM_BATCH, 128, 128, 3):
+                fail(f"15a: maps {tuple(res.uncertainty.shape)}")
+        rels = {}
+        for what, (k, pl, f) in pairs.items():
+            if not (bool(torch.isfinite(k.float()).all()) and tuple(k.shape) == tuple(f.shape)):
+                fail(f"{tag} {what}: not finite, or shape {tuple(k.shape)} against {tuple(f.shape)}")
+            rels[what] = {"kernels": rel_l2(k, f), "plain": rel_l2(pl, f), "kernels_vs_plain": rel_l2(k, pl)}
+        name = "sample_ddpm (learned_range, centered M=5 on the last 2 steps)" if tag == "15a" else "sample_kdpm2"
+        print(f"[{tag}] {name}, ADM-128, {P15_STEPS} steps, bf16, batch {ADM_BATCH}: {r['s']:.2f} s with the kernels "
+              f"({r['adm_calls']} model calls) on {card}; against the same chain in float32 (plain versions, "
+              f"{f32_s:.2f} s): " + "; ".join(f"{w} rel L2 {v['kernels']:.3e} (the plain versions {v['plain']:.3e}, "
+                                              f"kernels against plain {v['kernels_vs_plain']:.3e})"
+                                              for w, v in rels.items()) + f" (limit: plain + {P15_LIMIT})", flush=True)
+        for what, v in rels.items():
+            if not v["kernels"] <= v["plain"] + P15_LIMIT:
+                fail(f"{tag} {what}: relative L2 error {v['kernels']} against float32 (plain versions {v['plain']}; "
+                     f"limit plain + {P15_LIMIT})")
+        p15[tag] = {**r, "rel_l2": rels, "float32_s": f32_s}
+    del model, model32, bundle, res, res_p, res_f
+    lap("15a-b")
+
+    saved_root = os.environ.get("DIFFUSION_UNCERTAINTY_ROOT")
+    saved_build = (measure_times.instantiate_model_scheduler, uncertainty_benchmark.instantiate_model_scheduler,
+                   dataset_cli.instantiate_model_scheduler)
+    hook_build = lambda *a, **kw: hooked(saved_build[0](*a, **kw))  # noqa: E731
+    measure_times.instantiate_model_scheduler = uncertainty_benchmark.instantiate_model_scheduler = hook_build
+    dataset_cli.instantiate_model_scheduler = hook_build
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = root
+            # 15c: measure_times with no --device, the bench.py protocol, against each baseline
+            protocol = ["--dataset", "imagenet128", "--random-init", "true", "--batch-size", str(ADM_BATCH),
+                        "--scheduler-type", "uncertainty_zigzag_centered", "--M", "5", "--num-zigzag", "3",
+                        "--generation-steps", "50", "--start-step-uc", "40", "--num-steps-uc", "10", "--repeats", "1"]
+            for baseline in ("kdpm2", "ddim"):
+                rec, r = counted(f"15c {baseline}", lambda: measure_times.main(protocol + ["--baseline", baseline]))
+                print(f"[15c] measure_times --baseline {baseline}: {json.dumps(rec)}", flush=True)
+                p15[f"measure_times_{baseline}"] = {**r, "record": rec}
+            times = json.loads((paths.results() / "times.json").read_text())
+            kind = torch.cuda.get_device_name(0)
+            if [(t["baseline"], t["device"]) for t in times] != [("kdpm2", kind), ("ddim", kind)]:
+                fail(f"15c: times.json holds {[(t['baseline'], t['device']) for t in times]}, want kdpm2 and ddim on {kind}")
+            if not all(t[k] > 0 for t in times for k in ("overhead_x", "images_per_sec_uncertainty", "images_per_sec_plain")):
+                fail(f"15c: records {times}")
+            lap("15c")
+
+            # 15d: the estimator grid with no --device, then summary_experiments
+            # on the results folder (with one short dataset-CLI run in it)
+            generate_starting_points.main(["--datasets", "imagenet128", "--num-samples", str(ADM_BATCH),
+                                           "--extra-samples", "0"])
+            rows, r = counted("15d", lambda: uncertainty_benchmark.main([
+                "--dataset", "imagenet128", "--random-init", "true", "--num-samples", str(ADM_BATCH),
+                "--batch-size", str(ADM_BATCH), "--generation-steps", "20", "--start-step-uc", "16",
+                "--num-steps-uc", "4"]))
+            for row in rows:
+                print(f"[15d] uncertainty_benchmark {row['method']}: {json.dumps(row)}", flush=True)
+            if ([row["method"] for row in rows] != list(uncertainty_benchmark.ESTIMATOR_METHODS)
+                    or not all(math.isfinite(row["mean_uncertainty"]) and row["images_per_sec"] > 0 for row in rows)):
+                fail(f"15d: rows {rows}")
+            run, r_cli = counted("15d dataset CLI", lambda: dataset_cli.main([
+                "--dataset", "imagenet128", "--random-init", "true", "--scheduler-type", "uncertainty_centered",
+                "--num-samples", str(ADM_BATCH), "--batch-size", str(ADM_BATCH), "--M", "5", "--generation-steps", "10",
+                "--start-step-uc", "8", "--num-steps-uc", "2"]))
+            table = summary_experiments.main([])
+            want = [run.name, "imagenet128", "uncertainty_centered", ADM_BATCH, 5, 10, 8, 2, 1]
+            if table != [want]:
+                fail(f"15d: summary_experiments rows {table}, want [{want}]")
+            p15["uncertainty_benchmark"] = {**r, "rows": rows}
+            p15["dataset_cli"] = {**r_cli, "summary": table}
+    finally:
+        measure_times.instantiate_model_scheduler, uncertainty_benchmark.instantiate_model_scheduler = saved_build[:2]
+        dataset_cli.instantiate_model_scheduler = saved_build[2]
+        if saved_root is None:
+            os.environ.pop("DIFFUSION_UNCERTAINTY_ROOT", None)
+        else:
+            os.environ["DIFFUSION_UNCERTAINTY_ROOT"] = saved_root
+    lap("15d")
+    total = {k: sum(r["launches"][k] for r in p15.values()) for k in KERNELS}
+    print(f"[15] launches of phase 15's paths: {json.dumps(total)}", flush=True)
+    return p15
 
 
 def main() -> None:
@@ -2644,6 +2849,10 @@ def main() -> None:
     details.update(phase14=phase14)
     print(f"[14] phase time {sum(details['phase_s'][k] for k in ('14a', '14b', '14c', '14d')):.1f} s", flush=True)
 
+    # ---- phase 15: ADM-128's DDPM and KDPM2 samplers, measure_times, the grid ----
+    phase15_runs = phase15(dev, card, wrapper_mods, plains, lap)
+    details.update(phase15=phase15_runs)
+    print(f"[15] phase time {sum(details['phase_s'][k] for k in ('15a-b', '15c', '15d')):.1f} s", flush=True)
 
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
@@ -2652,7 +2861,8 @@ def main() -> None:
 
     path_runs = (*sd_runs.values(), *cifar_runs.values(), *(r for r in metric_runs.values() if "launches" in r),
                  uvit_runs["main path"], guided_runs["guided"], guided_runs["dpm"], *phase12.values(),
-                 *(r for k, r in phase13.items() if k.startswith("cli_")), *(r for r in phase14.values() if "launches" in r))
+                 *(r for k, r in phase13.items() if k.startswith("cli_")), *(r for r in phase14.values() if "launches" in r),
+                 *phase15_runs.values())
     launches = {k: adm_launches[k] + sum(r["launches"][k] for r in path_runs) for k in names}
     entries = []
     for k, (src, replaces) in KERNELS.items():

@@ -1,9 +1,10 @@
-"""Reverse-diffusion DDIM sampling with a static uncertainty window.
+"""Reverse-diffusion DDIM and DDPM sampling with a static uncertainty window.
 
-JAX counterpart: ``diffusion_uncertainty_tpu/diffusion/sampler.py``. The three
-``lax.scan`` segments (pre-window / window / post-window) become one Python
-loop over the steps; the window's maps are written into tensors on the
-sample's device, so the loop never reads back to the host.
+JAX counterpart: ``diffusion_uncertainty_tpu/diffusion/sampler.py``
+(``sample_ddim``; ``sample_ddpm``, :195-261). The three ``lax.scan``
+segments (pre-window / window / post-window) become one Python loop over the
+steps; the window's maps are written into tensors on the sample's device, so
+the loop never reads back to the host.
 
 Model function contract:
     model_fn(x, t, noise_or_None) -> epsilon-like output (same shape as x)
@@ -25,11 +26,12 @@ import torch
 
 from ..utils.rng import NoiseSource
 from .ddim import DiffusionConfig, ddim_step
+from .ddpm import ddpm_step
 from .schedule import NoiseSchedule, spaced_timesteps, uncertainty_window
 
 ModelFn = Callable[[torch.Tensor, int, Optional[NoiseSource]], torch.Tensor]
 
-__all__ = ["StepState", "SamplerConfig", "SampleResult", "sample_ddim", "to_uint8"]
+__all__ = ["StepState", "SamplerConfig", "SampleResult", "sample_ddim", "sample_ddpm", "to_uint8"]
 
 
 class StepState(NamedTuple):
@@ -159,6 +161,57 @@ def sample_ddim(
     if not windowed:
         return SampleResult(x, None, None, None, intermediates)
     return SampleResult(x, uncertainty, pred_eps, ts[w0:w1], intermediates)
+
+
+@torch.no_grad()
+def sample_ddpm(
+    model_fn: ModelFn,
+    schedule: NoiseSchedule,
+    x_T: torch.Tensor,
+    noise: NoiseSource,
+    cfg: SamplerConfig,
+    variance_type: str = "fixed_small",
+    estimator: Optional[EstimatorFn] = None,
+    estimator_model_fn: Optional[ModelFn] = None,
+) -> SampleResult:
+    """The ancestral (stochastic) DDPM chain from ``x_T``, on its device.
+
+    Every step draws one float32 normal of x's shape for the ancestral noise
+    (the last step too, where it is masked off), then, inside the window,
+    the estimator's draws. ``learned`` / ``learned_range``: ``model_fn``
+    returns the model's raw output, whose channels past ``x.shape[-1]`` are
+    the variance the step consumes. The chain starts at step 0 whatever
+    ``cfg.start_step`` says, as JAX's does; ``pred_epsilon`` is not kept.
+    """
+    dcfg = cfg.diffusion
+    ts = spaced_timesteps(cfg.num_train_timesteps, cfg.num_inference_steps, dcfg.timestep_spacing, dcfg.steps_offset)
+    prev_ts = ts - cfg.num_train_timesteps // cfg.num_inference_steps
+    learned = variance_type in ("learned", "learned_range")
+    windowed = estimator is not None and cfg.num_steps_uc > 0
+    w0 = w1 = 0
+    if windowed:
+        w0, w1 = uncertainty_window(cfg.after_step, cfg.num_steps_uc, cfg.num_inference_steps)
+    uncertainty = torch.empty((w1 - w0,) + tuple(x_T.shape), dtype=torch.float32, device=x_T.device) if windowed else None
+    est_fn = estimator_model_fn if estimator_model_fn is not None else model_fn
+
+    x = x_T
+    for i in range(cfg.num_inference_steps):
+        t, t_prev = int(ts[i]), int(prev_ts[i])
+        out = model_fn(x, t, None)
+        pred_var = None
+        if learned:
+            out, pred_var = out[..., : x.shape[-1]], out[..., x.shape[-1] :]
+        step_noise = noise.normal(x.shape, torch.float32, x.device)
+        step = ddpm_step(schedule, x, out, t, t_prev, dcfg, noise=step_noise, variance_type=variance_type,
+                         predicted_variance=pred_var)
+        if w0 <= i < w1:
+            state = StepState(x, step.pred_original_sample, step.pred_epsilon, step.prev_sample, t, t_prev)
+            uncertainty[i - w0] = estimator(est_fn, schedule, state, noise)
+        x = step.prev_sample
+
+    if not windowed:
+        return SampleResult(x, None, None, None)
+    return SampleResult(x, uncertainty, None, ts[w0:w1])
 
 
 def to_uint8(x: torch.Tensor) -> torch.Tensor:

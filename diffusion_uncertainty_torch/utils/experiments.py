@@ -2,8 +2,9 @@
 
 JAX counterpart: ``diffusion_uncertainty_tpu/utils/experiments.py``
 (``new_run_dir``, ``save_shard``, ``load_shard``, ``load_run_arrays``,
-:42-78), with the same layout, so the JAX package's tools read the port's
-runs::
+``find_runs``, ``clean_empty_runs``, :42-117), with the same layout, so the
+JAX package's tools read the port's runs and the port's read the JAX
+package's::
 
     results/score-uncertainty/<YYYY-MM-DD_HH-MM-SS>/
         args.yaml                 run metadata
@@ -19,14 +20,14 @@ from __future__ import annotations
 
 import datetime
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Iterator, Optional
 
 import numpy as np
 
 from . import paths
-from .config import save_config
+from .config import read_config, save_config
 
-__all__ = ["new_run_dir", "save_shard", "load_shard", "load_run_arrays"]
+__all__ = ["new_run_dir", "save_shard", "load_shard", "load_run_arrays", "find_runs", "clean_empty_runs"]
 
 
 def new_run_dir(base: Optional[Path] = None, config: Any = None, timestamp: Optional[str] = None) -> Path:
@@ -64,3 +65,48 @@ def load_run_arrays(run_dir: Path, name: str) -> np.ndarray:
         with np.load(p) as f:
             arrays.append(f["data"])
     return np.concatenate(arrays, axis=0)
+
+
+def _yaml_errors() -> tuple:
+    """PyYAML's parse error, where PyYAML is installed."""
+    try:
+        import yaml
+    except ImportError:
+        return ()
+    return (yaml.YAMLError,)
+
+
+def find_runs(base: Optional[Path] = None, **query: Any) -> Iterator[Path]:
+    """The run folders under ``base`` (``paths.score_uncertainty()``) whose
+    ``args.yaml`` holds every ``key=value`` of the query, in name order."""
+    base = Path(base) if base is not None else paths.score_uncertainty()
+    if not base.exists():
+        return
+    for run in sorted(base.iterdir()):
+        meta_file = run / "args.yaml"
+        if not meta_file.exists():
+            continue
+        try:
+            meta = read_config(meta_file) or {}
+        except (ImportError, *_yaml_errors()):  # unreadable here (no PyYAML, or not YAML): skipped
+            continue
+        if all(meta.get(k) == v for k, v in query.items()):
+            yield run
+
+
+def clean_empty_runs(base: Optional[Path] = None) -> list[Path]:
+    """Delete the run folders under ``base`` that hold no ``.npz`` shard
+    (crashed runs); returns them."""
+    base = Path(base) if base is not None else paths.score_uncertainty()
+    removed = []
+    if not base.exists():
+        return removed
+    for run in sorted(base.iterdir()):
+        if not run.is_dir():
+            continue
+        if not any(run.glob("*.npz")):
+            for f in run.iterdir():
+                f.unlink()
+            run.rmdir()
+            removed.append(run)
+    return removed

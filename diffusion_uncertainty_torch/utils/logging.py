@@ -1,8 +1,9 @@
 """Text logging and the JSON metrics sink of the CLIs.
 
 JAX counterpart: ``diffusion_uncertainty_tpu/utils/logging.py``
-(``get_logger``, ``MetricsSink``, :24-53): stdlib logging for text, and
-result files as JSON lists of records, appended to by every run.
+(``get_logger``, ``MetricsSink``, ``Timer``, :24-65): stdlib logging for
+text, result files as JSON lists of records, appended to by every run, and
+a wall-clock timer.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import time
 from pathlib import Path
 from typing import Any
 
-__all__ = ["get_logger", "MetricsSink"]
+__all__ = ["get_logger", "MetricsSink", "Timer"]
 
 _FORMAT = "%(asctime)s %(levelname).1s %(name)s] %(message)s"
 
@@ -47,3 +48,16 @@ class MetricsSink:
                 records = []
         records.append({"ts": time.time(), **record})
         self.path.write_text(json.dumps(records, indent=1))
+
+
+class Timer:
+    """Wall-clock context manager (``elapsed`` seconds after the block);
+    call ``torch.cuda.synchronize()`` before the block ends to time work on
+    the card."""
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.start

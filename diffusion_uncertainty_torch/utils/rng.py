@@ -17,6 +17,12 @@ float32 tensor of the sample's shape each (M · num_zigzag draws per step);
 guidance in place of the estimator (``uncertainty.guidance``), each window
 step draws one [M, *shape] tensor for the guidance's ensemble.
 
+``diffusion.sampler.sample_ddpm`` draws, at every step, one float32 tensor
+of x's shape for the ancestral noise first (the last step too, where the
+step masks it off, as JAX draws it and masks it), and then, for each step
+inside the window, the estimator's draws as above. ``diffusion.kdpm2``'s
+chain is deterministic and draws nothing.
+
 Dropout keep-masks come from ``bernoulli(shape, p, device) -> bool Tensor``
 (True with probability ``p``, the keep probability 1 - rate, as flax's
 ``nn.Dropout``). The ``mc_dropout`` estimator folds its M members into one
